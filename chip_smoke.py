@@ -9,18 +9,26 @@ Run from the repository root.  Phases, each of which raises on failure:
   2. build: nvcc builds the CUDA kernels from kmer_spans_tpu_torch/csrc/;
   3. each kernel against its plain PyTorch version on the card, exact, on
      seeded inputs (random aug words with invalid positions, a stretch of
-     2^17 identical codes, blocks with no scored position);
+     2^17 identical codes, blocks with no scored position; for the value
+     histogram sizes 100 to 2^19, 2^17 identical values, all invalid, an
+     unaligned view);
   4. the golden genome through api.kmer_low_comp_regions(mode="fast") on
-     the card: exactly the 3 planted regions, equal (==) to the
-     sequential oracle's rank chain;
-  5. the full-size main path: N bases (default 2^28) from --seed, repeat
+     the card at k = 8 (exactly the 3 planted regions) and k = 12, equal
+     (==) to the sequential oracle's rank chain, with no rerun;
+  5. the full-size k = 8 path: N bases (default 2^28) from --seed, repeat
      islands and N gaps planted, through make_span_pipeline(packed=True)
      -> unpack_outputs -> finish_spans; kernel launch counts read around
      this run; the packed vector and regions must equal the same run with
      the plain versions on the card;
-  6. each kernel and its plain version timed (CUDA events) on the aug
-     words of that genome: the main path's shapes (N positions, block
-     8192, k = 8).
+  6. each kernel and its plain version timed (CUDA events) at the main
+     paths' shapes: the aug words of that genome (N positions, block
+     8192, k = 8) and the k = 13 pm screen's masked run lengths (N values
+     into 256 bins);
+  7. the full-size k >= 10 path on the same genome, for k = 12 (packed
+     key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
+     unpack_pm_outputs -> finish_pm_spans, launch counts read around each
+     run, the packed vector and regions equal to the same run with the
+     plain value histogram, every planted island called.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -109,14 +117,37 @@ def check_kernels(dev, seed: int) -> dict:
     import torch
 
     from kmer_spans_tpu_torch.ops.convert import to_tensor
-    from kmer_spans_tpu_torch.ops.histogram import count_aug, count_aug_plain
+    from kmer_spans_tpu_torch.ops.histogram import (
+        count_aug,
+        count_aug_plain,
+        histogram,
+        histogram_plain,
+    )
     from kmer_spans_tpu_torch.ops.screen_scan import (
         fused_screen_scan,
         fused_screen_scan_plain,
     )
 
     rng = np.random.default_rng(seed)
-    err = {"count_aug": 0, "fused_screen_scan": 0}
+    err = {"count_aug": 0, "fused_screen_scan": 0, "histogram": 0}
+    for size in (100, 256, 4096, 65536, 1 << 19):
+        n = (1 << 22) + 5
+        values = rng.integers(-3, size + 40, n).astype(np.int32)
+        valid = rng.random(n) < 0.8
+        values[7000:7000 + (1 << 17)] = min(2, size - 1)  # 2^17 identical
+        valid[7000:7000 + (1 << 17)] = True
+        x, m = to_tensor(values, dev), to_tensor(valid, dev)
+        # all valid, aligned; unaligned view; all invalid
+        for args in ((x, m), (x[1:], m[1:]), (x, torch.zeros_like(m))):
+            e = max_abs_err(histogram(*args, size),
+                            histogram_plain(*args, size))
+            torch.cuda.synchronize()
+            if e:
+                raise AssertionError(f"histogram size={size}: max |err| {e}")
+        if histogram(x, torch.zeros_like(m), size).any():
+            raise AssertionError("histogram counted an invalid value")
+        log(f"  histogram size={size}: equal to plain (n={n:,}, 2^17 "
+            "identical values, unaligned view, all invalid)")
     for k in (4, 6, 8):
         aug = aug_case(rng, (1 << 22) + 5, k)
         aug[7000:7000 + (1 << 17)] = (1 << 16) | 9  # 2^17 identical codes
@@ -211,7 +242,44 @@ def time_kernels(dev, nbases_dev) -> dict:
     return out
 
 
-def golden_phase(dev) -> None:
+def time_histogram(dev, nbases_dev) -> dict:
+    """Phase 6, K3: the k = 13 pm screen's value histogram, kernel and
+    plain version, on that screen's own inputs."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import histogram as hist
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.pmscreen import pm_params, sorted_runs
+
+    k = 13
+    n = nbases_dev.shape[0]
+    nb = n // BLOCK
+    codes, kv = blocked_codes((nbases_dev & 3).reshape(nb, BLOCK),
+                              (nbases_dev < 4).reshape(nb, BLOCK), k)
+    _, _, head, v, real = sorted_runs(codes.reshape(-1), kv.reshape(-1), k)
+    del codes, kv
+    nbins = pm_params(k, None, n=n)[3]
+    vals, valid = torch.clamp(v, max=nbins - 1), head & real
+    del head, v, real
+    err = max_abs_err(hist.histogram(vals, valid, nbins),
+                      hist.histogram_plain(vals, valid, nbins))
+    if err:
+        raise AssertionError(f"histogram differs from plain at full size: "
+                             f"max |err| {err}")
+    masked = torch.where(valid, vals, -1)
+    p1 = time_ms(lambda: hist.histogram_plain(vals, valid, nbins), 3)
+    t1 = time_ms(lambda: hist.histogram(vals, valid, nbins), 5)
+    t2 = time_ms(lambda: hist.histogram(vals, valid, nbins), 5)
+    p2 = time_ms(lambda: hist.histogram_plain(vals, valid, nbins), 3)
+    bare = time_ms(
+        lambda: hist._launch("kst_histogram", masked, nbins, nbins), 5)
+    log(f"  histogram (k = 13 run lengths, {int(valid.sum()):,} of {n:,} "
+        f"valid, {nbins} bins): kernel {t1:.4f}/{t2:.4f} ms (the kernel "
+        f"alone, on masked input: {bare:.4f} ms), plain {p1:.4f}/{p2:.4f} ms")
+    return {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2, "err": err}
+
+
+def golden_phase(dev, k: int) -> None:
     """Phase 4: the golden genome through the port's api."""
     from kmer_spans_tpu_torch import api
     from kmer_spans_tpu_torch.oracle import (
@@ -222,40 +290,115 @@ def golden_phase(dev) -> None:
     )
 
     seq = golden_genome()
-    res = api.kmer_low_comp_regions(seq, k=8, min_w=MIN_W, min_score=MIN_S,
+    api.exact_fallbacks = 0
+    res = api.kmer_low_comp_regions(seq, k=k, min_w=MIN_W, min_score=MIN_S,
                                     thr=THR, mode="fast", device=dev)
-    counts, n = count_spectrum(seq, 8)
+    counts, n = count_spectrum(seq, k)
     want = find_regions(seq, 0, MIN_W, MIN_S,
-                        weighted_ranks(counts, float(n)), 8, THR)
+                        weighted_ranks(counts, float(n)), k, THR)
     got = [(int(r["beg"]), int(r["end"]), float(r["score"]))
            for r in res.regions]
-    if got != [(b, e, s) for _, b, e, s in want] or len(got) != 3:
-        raise AssertionError(f"golden regions {got} != oracle {want}")
-    if [b for b, _, _ in got] != [20008, 50008, 80007]:
+    if got != [(b, e, s) for _, b, e, s in want] or not got:
+        raise AssertionError(f"golden k={k}: regions {got} != oracle {want}")
+    if k == 8 and [b for b, _, _ in got] != [20008, 50008, 80007]:
         raise AssertionError(f"golden regions moved: {got}")
     if api.exact_fallbacks:
-        raise AssertionError("the api overflowed its candidate capacity")
-    log(f"  golden: {got} == oracle chain")
+        raise AssertionError(f"golden k={k}: the api reran the pipeline")
+    log(f"  golden k={k}: {got} == oracle chain")
 
 
 @contextlib.contextmanager
 def plain_versions(on: bool):
-    """While on, the pipeline's K1 and K2 calls run their plain PyTorch
-    versions on the card (the reference run of phase 5)."""
+    """While on, the pipelines' kernel calls run their plain PyTorch
+    versions on the card (the reference runs of phases 5 and 7)."""
     from kmer_spans_tpu_torch.ops import histogram, screen_scan
 
-    saved = histogram.count_aug, screen_scan.fused_screen_scan
+    saved = (histogram.count_aug, histogram.histogram,
+             screen_scan.fused_screen_scan)
     if on:
         histogram.count_aug = histogram.count_aug_plain
+        histogram.histogram = histogram.histogram_plain
         screen_scan.fused_screen_scan = screen_scan.fused_screen_scan_plain
     try:
         yield
     finally:
-        histogram.count_aug, screen_scan.fused_screen_scan = saved
+        (histogram.count_aug, histogram.histogram,
+         screen_scan.fused_screen_scan) = saved
+
+
+def zero_launch_counts() -> None:
+    from kmer_spans_tpu_torch.ops import histogram, screen_scan
+
+    histogram.count_aug_launches = 0
+    histogram.histogram_launches = 0
+    screen_scan.launches = 0
+
+
+def check_islands(res, n: int) -> int:
+    """Every planted island called, no fallback, finite scores."""
+    if res.fallback:
+        raise AssertionError("candidate capacity overflow (fallback)")
+    islands = range(1_000_000, n - 5000, 5_000_000)
+    hit = [any(b <= s + 3000 and e >= s for _, b, e, _ in res.regions)
+           for s in islands]
+    if not all(hit) or not all(np.isfinite(r[3]) for r in res.regions):
+        raise AssertionError(f"islands without a region: "
+                             f"{[s for s, h in zip(islands, hit) if not h]}")
+    return len(hit)
+
+
+def cand_blocks(n: int) -> int:
+    """C, the candidate capacity: bench.py's rule."""
+    return min(n // BLOCK, max(256, 5 * (n // 2_500_000)))
+
+
+def timed_run(fn, nbases_dev, finish, plain: bool):
+    """One device step (kernels or plain versions), pull and host finish.
+
+    Returns (packed vector on the card, finished spans, (device s, pull s,
+    finish s), peak device bytes of the step).
+    """
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with plain_versions(plain):
+        t0 = time.perf_counter()
+        vec = fn(nbases_dev, THR)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    host = vec.cpu().numpy()
+    t2 = time.perf_counter()
+    res = finish(host)
+    t3 = time.perf_counter()
+    return vec, res, (t1 - t0, t2 - t1, t3 - t2), \
+        torch.cuda.max_memory_allocated()
+
+
+def compare_runs(name, card, n, runs) -> None:
+    """The kernels' runs against the plain run: vector, regions, islands;
+    then the times of each run."""
+    import torch
+
+    (vec, res, _, _), *_, (vec_p, res_p, _, _) = runs
+    hit = check_islands(res, n)
+    check_islands(res_p, n)
+    if not torch.equal(vec, vec_p):
+        raise AssertionError(f"{name}: packed vector differs from the "
+                             "plain run")
+    if res.regions != res_p.regions:
+        raise AssertionError(f"{name}: regions differ from the plain run")
+    log(f"  {name}: {len(res.regions)} regions, all {hit} planted islands "
+        "called, equal to the plain run")
+    for label, (_, _, t, peak) in zip(
+            ("kernels, first call", "kernels, second call",
+             "plain versions"), runs):
+        log(f"  {name}, {label}: device step {t[0] * 1e3:.1f} ms, pull "
+            f"{t[1] * 1e3:.1f} ms, host finish {t[2] * 1e3:.1f} ms, peak "
+            f"device memory {peak / 2 ** 30:.2f} GiB [{card}]")
 
 
 def full_size_phase(dev, nbases: np.ndarray, card: str):
-    """Phase 5: the main path at full size.
+    """Phase 5: the k = 8 path at full size.
 
     Returns the kernels' launch counts in that run and the genome on the
     card.
@@ -269,56 +412,64 @@ def full_size_phase(dev, nbases: np.ndarray, card: str):
     from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
 
     n = nbases.shape[0]
-    cand = min(n // BLOCK, max(256, 5 * (n // 2_500_000)))
+    cand = cand_blocks(n)
     nbases_dev = to_tensor(nbases, dev)
     torch.cuda.synchronize()
+    fn = make_span_pipeline(8, block=BLOCK, cand_blocks=cand, packed=True,
+                            device=dev)
 
-    def run(plain: bool):
-        fn = make_span_pipeline(8, block=BLOCK, cand_blocks=cand, packed=True,
-                                device=dev)
-        with plain_versions(plain):
-            t0 = time.perf_counter()
-            vec = fn(nbases_dev, THR)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-        host = vec.cpu().numpy()
-        t2 = time.perf_counter()
+    def finish(host):
         out = unpack_outputs(host, 8, n, BLOCK, cand,
                              packed_bases=fn.packed_bases, lazy_codes=True)
-        res = finish_spans(out, n, THR, MIN_W, MIN_S, block=BLOCK)
-        t3 = time.perf_counter()
-        return vec, res, (t1 - t0, t2 - t1, t3 - t2)
+        return finish_spans(out, n, THR, MIN_W, MIN_S, block=BLOCK)
 
-    histogram.launches = 0
-    screen_scan.launches = 0
-    vec, res, first = run(plain=False)
-    launches = {"count_aug": histogram.launches,
+    zero_launch_counts()
+    runs = [timed_run(fn, nbases_dev, finish, plain=False)]
+    launches = {"count_aug": histogram.count_aug_launches,
                 "fused_screen_scan": screen_scan.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
-    _, _, steady = run(plain=False)
-    vec_p, res_p, plain_t = run(plain=True)
-    if res.fallback or res_p.fallback:
-        raise AssertionError("candidate capacity overflow (fallback)")
-    if not torch.equal(vec, vec_p):
-        raise AssertionError("packed vector differs from the plain run")
-    if res.regions != res_p.regions:
-        raise AssertionError("regions differ from the plain run")
-    islands = range(1_000_000, n - 5000, 5_000_000)
-    hit = [any(b <= s + 3000 and e >= s for _, b, e, _ in res.regions)
-           for s in islands]
-    if not all(hit) or not all(np.isfinite(r[3]) for r in res.regions):
-        raise AssertionError(f"islands without a region: "
-                             f"{[s for s, h in zip(islands, hit) if not h]}")
-    log(f"  n={n:,} block={BLOCK} cand={cand}: {len(res.regions)} regions, "
-        f"all {len(hit)} planted islands called, equal to the plain run")
-    for name, t in (("kernels, first call", first),
-                    ("kernels, second call", steady),
-                    ("plain versions", plain_t)):
-        log(f"  {name}: device step {t[0] * 1e3:.1f} ms, pull "
-            f"{t[1] * 1e3:.1f} ms, host finish {t[2] * 1e3:.1f} ms "
-            f"[{card}]")
+    runs += [timed_run(fn, nbases_dev, finish, plain=p) for p in (False, True)]
+    compare_runs(f"k=8 n={n:,} block={BLOCK} cand={cand}", card, n, runs)
     return launches, nbases_dev
+
+
+def pm_phase(dev, nbases_dev, card: str) -> int:
+    """Phase 7: the k >= 10 pm path at full size, k = 12 (packed key),
+    13 and 15 (strategy from the length).  Returns K3's launches."""
+    from kmer_spans_tpu_torch.ops import histogram
+    from kmer_spans_tpu_torch.spans import pm_finish
+    from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
+
+    n = nbases_dev.shape[0]
+    cand = cand_blocks(n)
+    log(f"  host replay through the native library: "
+        f"{pm_finish.native.available()}")
+    launches = 0
+    for k, strategy in ((12, "packed"), (13, None), (15, None)):
+        fn, meta = make_pm_span_pipeline(k, block=BLOCK, cand_blocks=cand,
+                                         strategy=strategy, device=dev)
+        outs = []
+
+        def finish(host):
+            out = pm_finish.unpack_pm_outputs(host, n, meta)
+            outs.append(out)
+            return pm_finish.finish_pm_spans(out, n, meta, THR, MIN_W, MIN_S)
+
+        zero_launch_counts()
+        runs = [timed_run(fn, nbases_dev, finish, plain=False)]
+        if histogram.histogram_launches < 1:
+            raise AssertionError(f"k={k}: the pm path skipped the histogram")
+        launches += histogram.histogram_launches
+        runs += [timed_run(fn, nbases_dev, finish, plain=p)
+                 for p in (False, True)]
+        out = outs[0]
+        log(f"  k={k}: t_list {out['t_list']}, {out['list_count']} listed "
+            f"runs (cap {meta['list_cap']}), {meta['nbins']} value bins, "
+            f"total {out['total']:,}")
+        compare_runs(f"k={k} n={n:,} block={BLOCK} cand={cand}", card, n,
+                     runs)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -356,14 +507,21 @@ def main(argv=None) -> int:
     nbases = make_genome(args.bases, args.seed)
 
     log("phase 4: golden genome through the api")
-    golden_phase(dev)
+    for k in (8, 12):
+        golden_phase(dev, k)
 
-    log("phase 5: full-size main path")
+    log("phase 5: full-size k = 8 path")
     launches, nbases_dev = full_size_phase(dev, nbases, card)
 
-    log("phase 6: kernel and plain times at the main path's shapes "
+    log("phase 6: kernel and plain times at the main paths' shapes "
         f"[{card}]")
     times = time_kernels(dev, nbases_dev)
+    times["histogram"] = time_histogram(dev, nbases_dev)
+    err["histogram"] = max(err["histogram"], times["histogram"]["err"])
+    torch.cuda.empty_cache()
+
+    log("phase 7: full-size k >= 10 pm path")
+    launches["histogram"] = pm_phase(dev, nbases_dev, card)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -372,6 +530,8 @@ def main(argv=None) -> int:
                       "kmer_spans_tpu/ops/pallas_kernels.py:145"),
         "fused_screen_scan": ("kmer_spans_tpu_torch/csrc/screen_scan.cu",
                               "kmer_spans_tpu/ops/screen_scan.py:114"),
+        "histogram": ("kmer_spans_tpu_torch/csrc/histogram.cu",
+                      "kmer_spans_tpu/ops/pallas_kernels.py:83"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,14 +1,20 @@
 """User API of the port: the flagship span caller on one device.
 
 Counterpart of ``kmer_spans_tpu/api.py`` kmer_low_comp_regions in its
-device form (mode="fast"), for 4 <= k <= 8.  Results are the reference's
-``RegionResult``: region positions and f64 scores are exactly the
-sequential reference's (candidates are replayed on the host through the
-exact rank chain).  When the device's candidate capacity overflows, the
-call reruns the pipeline on the same device with twice the capacity,
-until every candidate block is pulled, and counts each rerun in
-``exact_fallbacks``.  (The reference instead falls through to its exact
-path; the regions are the same either way.)
+device form (mode="fast"), for 4 <= k <= 8 (the fused count and class
+screen, spans/pipeline.py) and 10 <= k <= 15 (the exact-mass pm screen,
+spans/pm_pipeline.py).  Results are the reference's ``RegionResult``:
+region positions and f64 scores are exactly the sequential reference's
+(candidates are replayed on the host through the exact rank chain).
+
+Where the device step cannot cover every candidate, the call reruns it on
+the same device and counts each rerun in ``exact_fallbacks``: with twice
+the candidate capacity, until every candidate block is pulled, or, at
+k >= 10, with a list capacity doubled until the high-count run list fits.
+(The reference instead falls through to its exact path; the regions are
+the same either way.)  At k >= 10 a smallv run-list overflow first retries
+once with the packed-key strategy, as the reference does; that retry is
+not counted.
 """
 
 from __future__ import annotations
@@ -20,12 +26,16 @@ import torch
 
 from kmer_spans_tpu.api import RegionResult, _as_region_array, _as_seq_list
 from kmer_spans_tpu.encoding import MAX_K
+from kmer_spans_tpu.utils import native
 
 from .device import resolve_device
+from .ops.pmscreen import pm_params
 from .spans.finish import finish_spans, host_rank_mass
 from .spans.pipeline import make_span_pipeline
+from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
+from .spans.pm_pipeline import make_pm_span_pipeline
 
-#: device reruns after a candidate-capacity overflow
+#: device reruns after a candidate- or list-capacity overflow
 exact_fallbacks = 0
 
 
@@ -38,8 +48,8 @@ def kmer_low_comp_regions(
 
     mode="fast" is the only mode ported: the sparse device pipeline over
     all sequences at once (concatenated with N separators), exact f64
-    replay of candidate blocks.  mode="exact" (the reference's default),
-    k = 9 and k >= 10 are still to be ported and raise
+    replay of candidates.  mode="exact" (the reference's default) and
+    k < 4 or k = 9 (the class screen) are still to be ported and raise
     NotImplementedError.
     """
     if mode == "exact":
@@ -50,11 +60,7 @@ def kmer_low_comp_regions(
         raise ValueError(f"unknown mode {mode!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k should be in [1, {MAX_K}]")
-    if k >= 10:
-        raise NotImplementedError(
-            f"k={k}: the k >= 10 pm pipeline is not ported yet: ROADMAP "
-            "queue 1 item 4")
-    if not 4 <= k <= 8:
+    if not (4 <= k <= 8 or k >= 10):
         raise NotImplementedError(
             f"k={k}: the non-fused class screen is not ported yet: ROADMAP "
             "queue 1 item 5")
@@ -68,11 +74,8 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
 
     Sequences >= k concatenate with single-N separators (segments never
     span N, so per-sequence semantics are kept exactly); emitted global
-    positions map back to (seq_id, local 1-based) coordinates.  On
-    candidate-capacity overflow the pipeline reruns with twice the
-    capacity; at one candidate per block none can be missed.
+    positions map back to (seq_id, local 1-based) coordinates.
     """
-    global exact_fallbacks
     if not 0.0 < thr < 1.0:
         raise ValueError("the threshold must be between 0 and 1")
     kept = [(i, p) for i, p in enumerate(packed) if p.n >= k]
@@ -98,22 +101,9 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
         arr[pos:pos + p.n] = np.where(p.valid, p.bases, 4)
         pos += p.n
     nbases = torch.from_numpy(arr).to(device)
-    nb = npad // block
-    cand = min(cand_blocks, nb)
-    while True:
-        fn = make_span_pipeline(k, block=block, cand_blocks=cand,
-                                device=device)
-        out = {key: v.cpu().numpy() for key, v in fn(nbases, thr).items()}
-        res = finish_spans(out, npad, thr, min_w, min_score, block=block)
-        if not res.fallback:
-            break
-        if cand == nb:
-            raise AssertionError("every block was pulled, yet a candidate "
-                                 "was missed")
-        exact_fallbacks += 1
-        cand = min(2 * cand, nb)
-    counts = out["counts"].astype(np.int64)
-    total = int(out["total"])
+    run = _pm_regions if k >= 10 else _class_regions
+    res, counts, total = run(nbases, arr, k, min_w, min_score, thr, device,
+                             block, cand_blocks)
     regions = []
     for _, beg, end, score in res.regions:
         j = bisect.bisect_right(offsets, beg - 1) - 1
@@ -125,3 +115,69 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
         regions=_as_region_array(regions),
         w_rank=host_rank_mass(counts).astype(np.float64) / max(total, 1),
     )
+
+
+def _class_regions(nbases, arr, k, min_w, min_score, thr, device, block,
+                   cand_blocks):
+    """4 <= k <= 8: the fused pipeline; a missed candidate reruns it with
+    twice the capacity (at one candidate per block none can be missed).
+    Returns (finished spans, counts int64, total)."""
+    global exact_fallbacks
+    npad = arr.shape[0]
+    nb = npad // block
+    cand = min(cand_blocks, nb)
+    while True:
+        fn = make_span_pipeline(k, block=block, cand_blocks=cand,
+                                device=device)
+        out = {key: v.cpu().numpy() for key, v in fn(nbases, thr).items()}
+        res = finish_spans(out, npad, thr, min_w, min_score, block=block)
+        if not res.fallback:
+            return res, out["counts"].astype(np.int64), int(out["total"])
+        if cand == nb:
+            raise AssertionError("every block was pulled, yet a candidate "
+                                 "was missed")
+        exact_fallbacks += 1
+        cand = min(2 * cand, nb)
+
+
+def _pm_regions(nbases, arr, k, min_w, min_score, thr, device, block,
+                cand_blocks):
+    """10 <= k <= 15: the pm pipeline (reference api.py:427-453).
+
+    A smallv run-list overflow at k <= 14 retries once with the packed
+    key; a list still overflowing reruns with its capacity doubled until
+    the true run count fits, a missed candidate with twice the candidate
+    capacity.  counts come from the host recount, as in the reference:
+    the replay needs none, only the result's counts/w_rank fields do.
+    Returns (finished spans, counts int64, total).
+    """
+    global exact_fallbacks
+    npad = arr.shape[0]
+    nb = npad // block
+    cand = min(cand_blocks, nb)
+    strategy, list_cap = None, None
+    while True:
+        fn, meta = make_pm_span_pipeline(
+            k, block=block, cand_blocks=cand, list_cap=list_cap,
+            strategy=strategy, device=device)
+        out = unpack_pm_outputs(fn(nbases, thr).cpu().numpy(), npad, meta)
+        res = finish_pm_spans(out, npad, meta, thr, min_w, min_score)
+        if not res.fallback:
+            break
+        overflow = out["list_count"] > meta["list_cap"]
+        if (overflow and strategy is None and k <= 14
+                and pm_params(k, None, n=npad)[0] == "smallv"):
+            strategy = "packed"
+            continue
+        if overflow:
+            list_cap = meta["list_cap"]
+            while list_cap < out["list_count"]:
+                list_cap *= 2
+        elif cand == nb:
+            raise AssertionError("every block was pulled, yet a candidate "
+                                 "was missed")
+        else:
+            cand = min(2 * cand, nb)
+        exact_fallbacks += 1
+    counts, _ = native.host_spectrum(arr, k)
+    return res, np.asarray(counts).astype(np.int64), int(out["total"])

@@ -1,10 +1,9 @@
 // Dense int32 histogram through block-private shared-memory bins.
 //
-// Shared by the aug spectrum count (count_aug.cu) and meant for the masked
-// value histogram still to be ported (kmer_spans_tpu/ops/pallas_kernels.py,
-// pallas_histogram): a Decode functor maps each input word to its bin in
-// [0, size), or to -1 when the word counts nowhere.  Only the decode differs
-// between the two.
+// Shared by the aug spectrum count (K1, count_aug.cu) and the masked value
+// histogram (K3, histogram.cu): a Decode functor maps each input word to its
+// bin in [0, size), or to -1 when the word counts nowhere.  Only the decode
+// differs between the two.
 //
 // What bounds it on an H100: one shared-memory atomic per counted word, and
 // the int4 stream of the input (4 bytes a word).  A block cannot hold a

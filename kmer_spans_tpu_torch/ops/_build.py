@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with nvcc and bind them through ctypes.
 
-``csrc/*.cu`` compile, at first use, into one shared library with a plain
-C interface under ``kmer_spans_tpu_torch/build/`` (a file named by a hash
-of the sources and flags, so an edited source builds anew), which is then
+``csrc/*.cu`` compile, at first use and in parallel (one nvcc each), into
+one shared library with a plain C interface under
+``kmer_spans_tpu_torch/build/`` (a file named by a hash of the sources and
+flags, so an edited source builds anew), which is then
 loaded with ``ctypes``.  Each C entry point launches one kernel on the
 stream it is given and returns ``cudaGetLastError()``.  Any build or load
 failure raises: there is no fallback.
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,7 +30,7 @@ BUILD_DIR = _PKG / "build"
 #: flags, so float arithmetic stays IEEE
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +41,9 @@ _SIGNATURES = {
     # aug, nb, block, words, n_words, class_bits, thr_q, out, stream
     "kst_screen_scan": (_P, ctypes.c_int64, ctypes.c_int32, _P,
                         ctypes.c_int32, ctypes.c_int32, _P, _P, _P),
+    # values, n, size, counts, num_sms, stream
+    "kst_histogram": (_P, ctypes.c_int64, ctypes.c_int32, _P,
+                      ctypes.c_int32, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,28 +78,42 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libkst_cuda_{h.hexdigest()[:16]}.so"
 
 
-def compile_library() -> tuple[Path, str]:
-    """Compile csrc/*.cu unless the library is already built.
-
-    Returns (path, nvcc's diagnostics); the diagnostics hold ptxas's
-    register and shared-memory report for each kernel, and are empty
-    when the library was already there.  Raises RuntimeError when nvcc
-    fails.
-    """
-    out = _library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+def _run(cmd: list[str]) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
             f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return out, res.stdout + res.stderr
+    return res.stdout + res.stderr
+
+
+def compile_library() -> tuple[Path, str]:
+    """Compile csrc/*.cu unless the library is already built.
+
+    One nvcc per source, all at once, then one link.  Returns (path,
+    nvcc's diagnostics); the diagnostics hold ptxas's register and
+    shared-memory report for each kernel, and are empty when the library
+    was already there.  Raises RuntimeError when nvcc fails.
+    """
+    out = _library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in _sources()]
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        with ThreadPoolExecutor(len(objs)) as pool:
+            diags = list(pool.map(
+                _run, ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                       for s, o in zip(_sources(), objs))))
+        _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        os.replace(tmp, out)  # atomic: a concurrent build never loads half
+    finally:
+        for p in (*objs, tmp):
+            p.unlink(missing_ok=True)
+    return out, "".join(diags)
 
 
 def library() -> ctypes.CDLL:

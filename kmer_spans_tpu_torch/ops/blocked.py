@@ -1,9 +1,9 @@
 """Blocked genome ops: the genome as (nb, block) tiles of int32/bool tensors.
 
-Counterpart of ``kmer_spans_tpu/ops/blocked.py`` for the k <= 8 span
-pipeline: rolling codes with the k-1 halo, the scored mask, the integer
-per-block max-plus summaries (the plain version that K2 fuses) and their
-cross-block composition.  Plain PyTorch; every function
+Counterpart of ``kmer_spans_tpu/ops/blocked.py`` for the span pipelines
+(k <= 8 and 10 <= k <= 15): rolling codes with the k-1 halo, the scored
+mask, the integer per-block max-plus summaries (the plain version that K2
+fuses) and their cross-block composition.  Plain PyTorch; every function
 runs on whatever device its tensors lie on.
 """
 

@@ -75,6 +75,25 @@ def _top_blocks(tA, tB, maxA, maxB, C: int) -> torch.Tensor:
     return torch.sort(top).values
 
 
+def pack_candidates(scored: torch.Tensor, codes: torch.Tensor):
+    """Candidate blocks as the reference's packed words, int32 1-D each.
+
+    scored: bool [C, block]; codes: int32 [C, block] rolling codes.
+    Returns (scored flags, 32 a word; per block its first full code, the
+    k-1 halo seed, then its 2-bit bases, 16 a word), from which
+    spans/finish.py rebuild_codes restores exact codes.
+    """
+    C, block = codes.shape
+    bits32 = torch.arange(32, device=codes.device)
+    sc_words = (scored.reshape(C, block // 32, 32).to(torch.int64)
+                << bits32).sum(dim=-1)
+    shifts = 2 * torch.arange(16, device=codes.device)
+    b16 = ((codes & 3).to(torch.int64).reshape(C, block // 16, 16)
+           << shifts).sum(dim=-1)
+    cand_words = torch.cat([codes[:, :1].to(torch.int64), b16], dim=1)
+    return wrap_int32(sc_words).reshape(-1), wrap_int32(cand_words).reshape(-1)
+
+
 def make_span_pipeline(
     k: int,
     block: int = 8192,
@@ -149,23 +168,12 @@ def make_span_pipeline(
                 "codes": cand,
                 "scored": sc_cand,
             }
-        C = top_idx.shape[0]
-        bits32 = torch.arange(32, device=dev)
-        sc_words = (sc_cand.reshape(C, block // 32, 32).to(torch.int64)
-                    << bits32).sum(dim=-1)
-        # 2-bit bases, 16 a word, after the block's first full code (its
-        # k-1 halo seed); unpack_outputs rebuilds exact codes
-        shifts = 2 * torch.arange(16, device=dev)
-        b16 = ((cand & 3).to(torch.int64).reshape(C, block // 16, 16)
-               << shifts).sum(dim=-1)
-        cand_words = torch.cat([cand[:, :1].to(torch.int64), b16], dim=1)
         return torch.cat([
             counts,
             total.reshape(1).to(torch.int32),
             tA, tB, maxA, maxB,
             top_idx.to(torch.int32),
-            wrap_int32(sc_words).reshape(-1),
-            wrap_int32(cand_words).reshape(-1),
+            *pack_candidates(sc_cand, cand),
         ])
 
     # candidate blocks always travel as 2-bit bases (block % 256 == 0)

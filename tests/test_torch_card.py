@@ -17,12 +17,17 @@ from kmer_spans_tpu_torch import api
 from kmer_spans_tpu_torch.oracle import golden_genome
 from kmer_spans_tpu_torch.ops import histogram, screen_scan
 from kmer_spans_tpu_torch.ops.convert import to_tensor
-from kmer_spans_tpu_torch.ops.histogram import count_aug, count_aug_plain
+from kmer_spans_tpu_torch.ops.histogram import (
+    count_aug,
+    count_aug_plain,
+    histogram_plain,
+)
 from kmer_spans_tpu_torch.ops.screen_scan import (
     fused_screen_scan,
     fused_screen_scan_plain,
 )
 from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
+from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -48,12 +53,12 @@ def test_count_aug_kernel_matches_plain(card, k):
     aug = _aug_words(rng, (1 << 20) + 3, k)
     aug[5000:5000 + (1 << 17)] = (1 << 16) | 7  # 2^17 identical codes
     x = to_tensor(aug, card)
-    before = histogram.launches
+    before = histogram.count_aug_launches
     for view in (x, x[1:]):  # 16-byte aligned and unaligned starts
         got = count_aug(view, k)
         torch.cuda.synchronize()
         assert torch.equal(got, count_aug_plain(view, k))
-    assert histogram.launches == before + 2
+    assert histogram.count_aug_launches == before + 2
 
 
 @pytest.mark.parametrize("block", [1024, 8192])
@@ -93,9 +98,9 @@ def test_pipeline_kernels_match_plain_versions(card, packed, monkeypatch):
     arr[rng.random(arr.size) < 0.001] = 4
     arr[100_000:103_000] = np.tile(np.array([0, 3], np.uint8), 1500)
     fn = make_span_pipeline(8, cand_blocks=16, packed=packed, device=card)
-    before = histogram.launches, screen_scan.launches
+    before = histogram.count_aug_launches, screen_scan.launches
     got = fn(arr, 0.75)
-    assert (histogram.launches, screen_scan.launches) == (
+    assert (histogram.count_aug_launches, screen_scan.launches) == (
         before[0] + 1, before[1] + 1)
     monkeypatch.setattr(histogram, "count_aug", count_aug_plain)
     monkeypatch.setattr(screen_scan, "fused_screen_scan",
@@ -131,3 +136,45 @@ def test_api_overflow_reruns_on_card(card, monkeypatch):
                               block=1024)
     assert len(got.regions) >= 2
     assert np.array_equal(got.regions, want.regions)
+
+
+@pytest.mark.parametrize("size", [100, 256, 4096, 65536, 1 << 19])
+def test_histogram_kernel_matches_plain(card, size):
+    rng = np.random.default_rng(size)
+    n = (1 << 20) + 3
+    values = rng.integers(-3, size + 40, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    values[5000:5000 + (1 << 17)] = min(2, size - 1)  # 2^17 identical
+    valid[5000:5000 + (1 << 17)] = True
+    x, m = to_tensor(values, card), to_tensor(valid, card)
+    before = histogram.histogram_launches
+    for args in ((x, m), (x[1:], m[1:])):  # aligned and unaligned starts
+        got = histogram.histogram(*args, size)
+        torch.cuda.synchronize()
+        assert torch.equal(got, histogram_plain(*args, size))
+    assert not histogram.histogram(x, torch.zeros_like(m), size).any()
+    assert histogram.histogram_launches == before + 3
+
+
+@pytest.mark.parametrize("k", [12, 13, 15])
+def test_pm_pipeline_kernel_matches_plain(card, k, monkeypatch):
+    rng = np.random.default_rng(k)
+    arr = rng.integers(0, 4, 64 * 8192).astype(np.uint8)
+    arr[rng.random(arr.size) < 0.001] = 4
+    arr[100_000:103_000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    fn, _ = make_pm_span_pipeline(k, cand_blocks=16, device=card)
+    before = histogram.histogram_launches
+    got = fn(arr, 0.75)
+    assert histogram.histogram_launches == before + 1
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    assert torch.equal(got, fn(arr, 0.75))
+
+
+def test_api_k12_on_card_equals_cpu(card, monkeypatch):
+    monkeypatch.setattr(api, "exact_fallbacks", 0)
+    seq = golden_genome()
+    got = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device=card)
+    want = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device="cpu")
+    assert len(got.regions) == 3 and api.exact_fallbacks == 0
+    assert np.array_equal(got.regions, want.regions)
+    assert np.array_equal(got.counts, want.counts)
