@@ -11,9 +11,12 @@ Run from the repository root.  Phases, each of which raises on failure:
      seeded inputs (random aug words with invalid positions, a stretch of
      2^17 identical codes, blocks with no scored position; for the value
      histogram sizes 100 to 2^19, 2^17 identical values, all invalid, an
-     unaligned view);
+     unaligned view; for the class gather tables of 2 to 2^15 words,
+     random entries, 2^17 identical entries, entries all in the last
+     word, a length that is not a multiple of 4, an unaligned view, and
+     the table sizes it must refuse);
   4. the golden genome through api.kmer_low_comp_regions(mode="fast") on
-     the card at k = 8 (exactly the 3 planted regions) and k = 12, equal
+     the card at k = 8 (exactly the 3 planted regions), 9, 3 and 12, equal
      (==) to the sequential oracle's rank chain, with no rerun;
   5. the full-size k = 8 path: N bases (default 2^28) from --seed, repeat
      islands and N gaps planted, through make_span_pipeline(packed=True)
@@ -22,13 +25,21 @@ Run from the repository root.  Phases, each of which raises on failure:
      the plain versions on the card;
   6. each kernel and its plain version timed (CUDA events) at the main
      paths' shapes: the aug words of that genome (N positions, block
-     8192, k = 8) and the k = 13 pm screen's masked run lengths (N values
-     into 256 bins);
+     8192, k = 8), the k = 13 pm screen's masked run lengths (N values
+     into 256 bins), and the class gather's k = 9 codes (32768 words) and
+     k = 12 sort-screen entries (16384 words);
   7. the full-size k >= 10 path on the same genome, for k = 12 (packed
      key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
      unpack_pm_outputs -> finish_pm_spans, launch counts read around each
      run, the packed vector and regions equal to the same run with the
-     plain value histogram, every planted island called.
+     plain value histogram, every planted island called;
+  8. the full-size non-fused class path (k = 9, make_span_pipeline(9,
+     packed=True) -> unpack_outputs -> finish_spans) and sort path
+     (k = 12, make_span_pipeline(12, packed=True, packed_counts=False) ->
+     host recount -> finish_spans(counts=...)) on the same genome, launch
+     counts read around each run, the packed vector and regions equal to
+     the same run with the plain value histogram and class gather, every
+     planted island called.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -117,6 +128,7 @@ def check_kernels(dev, seed: int) -> dict:
     import torch
 
     from kmer_spans_tpu_torch.ops.convert import to_tensor
+    from kmer_spans_tpu_torch.ops.gather import word_gather, word_gather_plain
     from kmer_spans_tpu_torch.ops.histogram import (
         count_aug,
         count_aug_plain,
@@ -129,7 +141,34 @@ def check_kernels(dev, seed: int) -> dict:
     )
 
     rng = np.random.default_rng(seed)
-    err = {"count_aug": 0, "fused_screen_scan": 0, "histogram": 0}
+    err = {"count_aug": 0, "fused_screen_scan": 0, "histogram": 0,
+           "word_gather": 0}
+    thr_q = torch.tensor(3071, dtype=torch.int32, device=dev)
+    for nw in (2, 8, 8192, 16384, 32768):
+        words = to_tensor(rng.integers(-(2 ** 31), 2 ** 31, nw,
+                                       dtype=np.int64).astype(np.int32), dev)
+        n = (1 << 22) + 5  # not a multiple of 4
+        entry = rng.integers(0, 8 * nw, n).astype(np.int32)
+        entry[7000:7000 + (1 << 17)] = 8 * nw - 3  # 2^17 identical
+        last = rng.integers(8 * nw - 8, 8 * nw, n).astype(np.int32)
+        for e_np in (entry, last):  # random; all in the last word
+            x = to_tensor(e_np, dev)
+            for view in (x, x[1:]):  # 16-byte aligned and unaligned starts
+                e = max_abs_err(word_gather(words, view, thr_q),
+                                word_gather_plain(words, view, thr_q))
+                torch.cuda.synchronize()
+                if e:
+                    raise AssertionError(f"word_gather W={nw}: max |err| {e}")
+        log(f"  word_gather W={nw}: equal to plain (n={n:,}, 2^17 identical "
+            "entries, all in the last word, unaligned view)")
+    for nw in (1 << 16, 24):
+        try:
+            word_gather(torch.zeros(nw, dtype=torch.int32, device=dev), x,
+                        thr_q)
+        except ValueError:
+            continue
+        raise AssertionError(f"word_gather took a table of {nw} words")
+    log("  word_gather refuses tables of 2^16 and 24 words")
     for size in (100, 256, 4096, 65536, 1 << 19):
         n = (1 << 22) + 5
         values = rng.integers(-3, size + 40, n).astype(np.int32)
@@ -279,6 +318,62 @@ def time_histogram(dev, nbases_dev) -> dict:
     return {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2, "err": err}
 
 
+def time_word_gather(dev, nbases_dev) -> dict:
+    """Phase 6, K4: the class gather at the k = 9 class screen's codes
+    (32768 words) and the k = 12 sort screen's entries (16384 words),
+    kernel and plain version, each on its path's own table."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, sortscreen
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.histogram import count_spectrum
+    from kmer_spans_tpu_torch.ops.pmscreen import sorted_runs
+    from kmer_spans_tpu_torch.parallel.pipeline import _rank_mass
+
+    n = nbases_dev.shape[0]
+    nb = n // BLOCK
+    b2, v2 = (nbases_dev & 3).reshape(nb, BLOCK), \
+        (nbases_dev < 4).reshape(nb, BLOCK)
+    thr_q = gather.screen_thr_q(
+        torch.tensor(THR, dtype=torch.float32, device=dev))
+    out = {}
+    for k in (9, 12):
+        codes, kv = blocked_codes(b2, v2, k)
+        codes, kv = codes.reshape(-1), kv.reshape(-1)
+        if k == 9:
+            counts = count_spectrum(codes, kv, k)
+            words = gather.class_table_from_mass(
+                _rank_mass(counts), counts.sum().to(torch.float32))
+            entry = codes
+        else:
+            skey, _, head, v, real = sorted_runs(codes, kv, k)
+            hb = (skey >> (2 * k - 8)) & 255
+            vmax, v2_ = sortscreen.VMAX, sortscreen.V2
+            words = sortscreen.rank_ub_tables(
+                *sortscreen.rank_ub_histograms(v, hb, head & real, vmax, v2_),
+                kv.sum(dtype=torch.int32), vmax, v2_)
+            entry = sortscreen.rank_ub_entries(v, hb, vmax, v2_)
+            del skey, head, v, real, hb
+        del codes, kv
+        err = max_abs_err(gather.word_gather(words, entry, thr_q),
+                          gather.word_gather_plain(words, entry, thr_q))
+        if err:
+            raise AssertionError(f"word_gather differs from plain at full "
+                                 f"size, k={k}: max |err| {err}")
+        p1 = time_ms(lambda: gather.word_gather_plain(words, entry, thr_q), 3)
+        t1 = time_ms(lambda: gather.word_gather(words, entry, thr_q), 5)
+        t2 = time_ms(lambda: gather.word_gather(words, entry, thr_q), 5)
+        p2 = time_ms(lambda: gather.word_gather_plain(words, entry, thr_q), 3)
+        log(f"  word_gather (k = {k} {'codes' if k == 9 else 'sort entries'}"
+            f", {entry.numel():,} entries, {words.numel()} words): kernel "
+            f"{t1:.4f}/{t2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+        # the JSON line reports the k = 9 class screen's shape
+        out.setdefault("ms", (t1 + t2) / 2)
+        out.setdefault("plain_ms", (p1 + p2) / 2)
+        del entry, words
+    return out
+
+
 def golden_phase(dev, k: int) -> None:
     """Phase 4: the golden genome through the port's api."""
     from kmer_spans_tpu_torch import api
@@ -311,27 +406,29 @@ def golden_phase(dev, k: int) -> None:
 def plain_versions(on: bool):
     """While on, the pipelines' kernel calls run their plain PyTorch
     versions on the card (the reference runs of phases 5 and 7)."""
-    from kmer_spans_tpu_torch.ops import histogram, screen_scan
+    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
 
     saved = (histogram.count_aug, histogram.histogram,
-             screen_scan.fused_screen_scan)
+             screen_scan.fused_screen_scan, gather.word_gather)
     if on:
         histogram.count_aug = histogram.count_aug_plain
         histogram.histogram = histogram.histogram_plain
         screen_scan.fused_screen_scan = screen_scan.fused_screen_scan_plain
+        gather.word_gather = gather.word_gather_plain
     try:
         yield
     finally:
         (histogram.count_aug, histogram.histogram,
-         screen_scan.fused_screen_scan) = saved
+         screen_scan.fused_screen_scan, gather.word_gather) = saved
 
 
 def zero_launch_counts() -> None:
-    from kmer_spans_tpu_torch.ops import histogram, screen_scan
+    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
 
     histogram.count_aug_launches = 0
     histogram.histogram_launches = 0
     screen_scan.launches = 0
+    gather.launches = 0
 
 
 def check_islands(res, n: int) -> int:
@@ -472,6 +569,55 @@ def pm_phase(dev, nbases_dev, card: str) -> int:
     return launches
 
 
+def class_sort_phase(dev, nbases: np.ndarray, nbases_dev, card: str):
+    """Phase 8: the non-fused class path (k = 9) and the sort path (k = 12)
+    at full size.  Returns the launches of K3 and K4 in those runs."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, histogram
+    from kmer_spans_tpu_torch.spans import pm_finish
+    from kmer_spans_tpu_torch.spans.finish import finish_spans, \
+        unpack_outputs
+    from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
+
+    n = nbases_dev.shape[0]
+    cand = cand_blocks(n)
+    launches = {"histogram": 0, "word_gather": 0}
+    want = {9: (1, 1), 12: (2, 1)}  # (K3, K4) launches per call
+    for k in (9, 12):
+        fn = make_span_pipeline(k, block=BLOCK, cand_blocks=cand, packed=True,
+                                packed_counts=k < 10, device=dev)
+        counts = None
+        if not fn.packed_counts:
+            t0 = time.perf_counter()
+            counts, _ = pm_finish.native.host_spectrum(nbases, k)
+            log(f"  k={k}: host recount {time.perf_counter() - t0:.3f} s "
+                f"(native library: {pm_finish.native.available()})")
+
+        def finish(host):
+            out = unpack_outputs(host, k, n, BLOCK, cand,
+                                 packed_bases=fn.packed_bases,
+                                 packed_counts=fn.packed_counts,
+                                 lazy_codes=True)
+            return finish_spans(out, n, THR, MIN_W, MIN_S, block=BLOCK,
+                                counts=counts)
+
+        torch.cuda.empty_cache()
+        zero_launch_counts()
+        runs = [timed_run(fn, nbases_dev, finish, plain=False)]
+        got = (histogram.histogram_launches, gather.launches)
+        if got != want[k]:
+            raise AssertionError(f"k={k} ({fn.screen} screen): launches "
+                                 f"(K3, K4) {got}, expected {want[k]}")
+        launches["histogram"] += got[0]
+        launches["word_gather"] += got[1]
+        runs += [timed_run(fn, nbases_dev, finish, plain=p)
+                 for p in (False, True)]
+        compare_runs(f"k={k} {fn.screen} screen n={n:,} block={BLOCK} "
+                     f"cand={cand}", card, n, runs)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -507,7 +653,7 @@ def main(argv=None) -> int:
     nbases = make_genome(args.bases, args.seed)
 
     log("phase 4: golden genome through the api")
-    for k in (8, 12):
+    for k in (8, 9, 3, 12):
         golden_phase(dev, k)
 
     log("phase 5: full-size k = 8 path")
@@ -518,10 +664,16 @@ def main(argv=None) -> int:
     times = time_kernels(dev, nbases_dev)
     times["histogram"] = time_histogram(dev, nbases_dev)
     err["histogram"] = max(err["histogram"], times["histogram"]["err"])
+    times["word_gather"] = time_word_gather(dev, nbases_dev)
     torch.cuda.empty_cache()
 
     log("phase 7: full-size k >= 10 pm path")
     launches["histogram"] = pm_phase(dev, nbases_dev, card)
+
+    log("phase 8: full-size k = 9 class path and k = 12 sort path")
+    for name, count in class_sort_phase(dev, nbases, nbases_dev,
+                                        card).items():
+        launches[name] = launches.get(name, 0) + count
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -532,6 +684,8 @@ def main(argv=None) -> int:
                               "kmer_spans_tpu/ops/screen_scan.py:114"),
         "histogram": ("kmer_spans_tpu_torch/csrc/histogram.cu",
                       "kmer_spans_tpu/ops/pallas_kernels.py:83"),
+        "word_gather": ("kmer_spans_tpu_torch/csrc/word_gather.cu",
+                        "kmer_spans_tpu/ops/gather.py:184"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

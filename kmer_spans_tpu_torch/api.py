@@ -1,11 +1,12 @@
 """User API of the port: the flagship span caller on one device.
 
 Counterpart of ``kmer_spans_tpu/api.py`` kmer_low_comp_regions in its
-device form (mode="fast"), for 4 <= k <= 8 (the fused count and class
-screen, spans/pipeline.py) and 10 <= k <= 15 (the exact-mass pm screen,
-spans/pm_pipeline.py).  Results are the reference's ``RegionResult``:
-region positions and f64 scores are exactly the sequential reference's
-(candidates are replayed on the host through the exact rank chain).
+device form (mode="fast"), for 2 <= k <= 9 (the class screen of
+spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
+and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py).
+Results are the reference's ``RegionResult``: region positions and f64
+scores are exactly the sequential reference's (candidates are replayed
+on the host through the exact rank chain).
 
 Where the device step cannot cover every candidate, the call reruns it on
 the same device and counts each rerun in ``exact_fallbacks``: with twice
@@ -48,9 +49,11 @@ def kmer_low_comp_regions(
 
     mode="fast" is the only mode ported: the sparse device pipeline over
     all sequences at once (concatenated with N separators), exact f64
-    replay of candidates.  mode="exact" (the reference's default) and
-    k < 4 or k = 9 (the class screen) are still to be ported and raise
-    NotImplementedError.
+    replay of candidates, for 2 <= k <= 15.  mode="exact" (the
+    reference's default) is still to be ported and raises
+    NotImplementedError.  k = 1 raises ValueError: the class table packs
+    8 ranks a word and 4^1 fill none (the reference's fast path fails
+    there too).
     """
     if mode == "exact":
         raise NotImplementedError(
@@ -60,10 +63,9 @@ def kmer_low_comp_regions(
         raise ValueError(f"unknown mode {mode!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k should be in [1, {MAX_K}]")
-    if not (4 <= k <= 8 or k >= 10):
-        raise NotImplementedError(
-            f"k={k}: the non-fused class screen is not ported yet: ROADMAP "
-            "queue 1 item 5")
+    if k < 2:
+        raise ValueError(
+            "mode='fast' needs k >= 2: the class table packs 8 ranks a word")
     dev = resolve_device(device)
     return _low_comp_fast(_as_seq_list(seqs), k, min_w, min_score, thr, dev)
 
@@ -119,7 +121,7 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
 
 def _class_regions(nbases, arr, k, min_w, min_score, thr, device, block,
                    cand_blocks):
-    """4 <= k <= 8: the fused pipeline; a missed candidate reruns it with
+    """2 <= k <= 9: the class screen; a missed candidate reruns it with
     twice the capacity (at one candidate per block none can be missed).
     Returns (finished spans, counts int64, total)."""
     global exact_fallbacks

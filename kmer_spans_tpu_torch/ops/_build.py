@@ -44,6 +44,9 @@ _SIGNATURES = {
     # values, n, size, counts, num_sms, stream
     "kst_histogram": (_P, ctypes.c_int64, ctypes.c_int32, _P,
                       ctypes.c_int32, _P),
+    # entry, n, words, n_words, thr_q, out, num_sms, stream
+    "kst_word_gather": (_P, ctypes.c_int64, _P, ctypes.c_int32, _P, _P,
+                        ctypes.c_int32, _P),
 }
 
 _lib: ctypes.CDLL | None = None

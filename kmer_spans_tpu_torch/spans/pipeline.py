@@ -1,27 +1,36 @@
-"""The k <= 8 span pipeline on one device: fused count -> rank -> screen.
+"""The k <= 15 span pipeline on one device: count -> rank -> screen.
 
 Counterpart of ``kmer_spans_tpu/spans/pipeline.py`` make_span_pipeline,
-its fused branch (4 <= k <= 8, block >= 1024).  One call computes, on the
-device:
+with its three screens:
 
-  1. rolling codes, k-mer validity and the scored mask, packed into ONE
-     aug word per position (code | valid << 16 | scored << 17);
-  2. the 4^k spectrum from the aug words (K1, ops/histogram.py);
-  3. the integer rank mass and the packed rank-class table;
-  4. per-block integer max-plus summaries (tA, tB, maxA, maxB) from the
-     class screen (K2, ops/screen_scan.py);
-  5. an exact int64 composition of the summaries and a run-aware top-C
-     choice of candidate blocks, with their codes and scored flags.
+  * "class", fused (4 <= k <= 8, block >= 1024): rolling codes, k-mer
+    validity and the scored mask packed into ONE aug word per position
+    (code | valid << 16 | scored << 17); the 4^k spectrum from the aug
+    words (K1, ops/histogram.py); the packed rank-class table; per-block
+    max-plus summaries straight from the class gather (K2,
+    ops/screen_scan.py);
+  * "class", non-fused (2 <= k <= 9, or block < 1024): the spectrum of the
+    codes (K3), the 4-bit class table, the class gather fused with the
+    integer score (K4, ops/gather.py word_gather), then the summaries;
+  * "sort" (10 <= k <= 15): the sort screen of ops/sortscreen.py (K3
+    twice, K4), with no 4^k table on the device; the finisher replays
+    from a host recount;
+  * "fine": an int16 4096-level table gathered in plain torch (no kernel;
+    kept for parity).
 
-The host then composes the summaries exactly and replays only candidate
-blocks in f64 (spans/finish.py finish_spans).
+Each then composes the summaries exactly in int64, picks the top-C
+candidate blocks run-aware, and returns them with their codes and scored
+flags.  The host composes the summaries exactly and replays only
+candidate blocks in f64 (spans/finish.py finish_spans).
 
 Differences from the reference: ties in the top-C choice go to the lower
 block index through a stable descending sort (lax.top_k's rule;
 torch.topk promises none), and the summaries are composed exactly in
 int64 where the reference composes in f32 (the same values wherever the
 f32 ones are exact, i.e. every partial sum an integer below 2^24; see
-ops/blocked.py compose_summaries_int64).
+ops/blocked.py compose_summaries_int64).  The reference's re-tiling of
+short blocks into 8192-position tiles, a TPU compile-time measure, is
+left out (the codes are the same either way).
 """
 
 from __future__ import annotations
@@ -31,12 +40,20 @@ import torch
 from ..device import resolve_device
 from ..ops.blocked import (
     blocked_codes,
+    blocked_scan_summaries_int,
     blocked_scored,
     compose_summaries_int64,
 )
-from ..ops import histogram, screen_scan
+from ..ops import gather, histogram, screen_scan
 from ..ops.convert import wrap_int32
-from ..ops.gather import CLASS_BITS, class_table_from_mass, screen_thr_q
+from ..ops.gather import (
+    CLASS_BITS,
+    class_table_from_mass,
+    fine_class_table,
+    fine_scores_int,
+    screen_thr_q,
+)
+from ..ops.sortscreen import sort_screen_scores
 from ..ops.screen_scan import MAX_BLOCK
 from ..parallel.pipeline import _rank_mass
 
@@ -101,38 +118,67 @@ def make_span_pipeline(
     screen: str = "auto",
     packed: bool = False,
     class_bits: int = CLASS_BITS,
+    packed_counts: bool = True,
     device="cuda",
 ):
-    """Build the device step fn(nbases, thr) for 4 <= k <= 8.
+    """Build the device step fn(nbases, thr) for 1 <= k <= 15.
 
     nbases: uint8 [n] (tensor or numpy; moved to ``device``), N as 4;
     n a multiple of ``block``.  thr: float (or float32 tensor).
 
+    screen: "auto" is "class" for k <= 9, else "sort".  "class" runs the
+    fused kernels at 4 <= k <= 8 with block >= 1024 and the non-fused
+    class screen otherwise (2 <= k <= 9); "sort" needs 4 <= k <= 15;
+    "fine" takes any k.  The sort screen builds no spectrum: it forces
+    packed_counts off and the dict's counts are None, so finish_spans
+    needs counts= from a host recount.
+
     packed=False returns a dict: counts, total, tA, tB, maxA, maxB,
-    top_idx, codes (the candidate blocks' codes, aug & 0xFFFF), scored.
-    packed=True returns ONE int32 vector in the reference's layout
-    (counts, total, tA, tB, maxA, maxB, top_idx, bit-packed scored flags,
-    candidate blocks as a seed code + 2-bit bases, 16 a word); decode it
-    with spans/finish.py unpack_outputs(..., packed_bases=fn.packed_bases).
+    top_idx, codes (the candidate blocks' codes), scored.  packed=True
+    returns ONE int32 vector in the reference's layout (counts unless
+    packed_counts is off, total, tA, tB, maxA, maxB, top_idx, bit-packed
+    scored flags, candidate blocks as a seed code + 2-bit bases, 16 a
+    word); decode it with spans/finish.py unpack_outputs(...,
+    packed_bases=fn.packed_bases, packed_counts=fn.packed_counts).  The
+    packed vector needs block % 32 == 0 (the scored flags go 32 a word),
+    as in the reference, so candidates always travel as bases.
 
-    class_bits: 4 (default) or 2 rank-class bits in the screen table.
-    K1 and K2 are looked up on their modules at each call
-    (``histogram.count_aug``, ``screen_scan.fused_screen_scan``).
-
-    Other k, screens and blocks are still to be ported and raise
-    NotImplementedError.
+    class_bits: 4 (default) or 2 rank-class bits in the fused screen's
+    table; the non-fused class screen always builds 4-bit classes, as
+    the reference does.  The kernels are looked up on their modules at
+    each call (``histogram.count_aug``, ``screen_scan.fused_screen_scan``,
+    ``histogram.histogram``, ``gather.word_gather``).
     """
-    if not 4 <= k <= 8 or screen not in ("auto", "class") or block < 1024:
-        raise NotImplementedError(
-            f"k={k}, screen={screen!r}, block={block}: only the fused "
-            "class screen (4 <= k <= 8, block >= 1024) is ported; the other "
-            "branches are ROADMAP queue 1 item 5")
-    if block % 256 or block > MAX_BLOCK:
+    if not 1 <= k <= 15:
+        raise ValueError(f"k must be in [1, 15], got {k}")
+    if screen == "auto":
+        screen = "class" if k <= 9 else "sort"
+    if screen not in ("class", "sort", "fine"):
+        raise ValueError(f"unknown screen {screen!r}")
+    if screen == "sort":
+        # no 4^k spectrum on the device: the finisher replays from a host
+        # recount (utils.native.host_spectrum)
+        packed_counts = False
+        if not 4 <= k <= 15:
+            raise ValueError(f"the sort screen needs 4 <= k <= 15, got {k}")
+    if packed and packed_counts and k > 13:
+        raise ValueError(
+            "packed_counts requires k <= 13 (device spectrum pull); use "
+            "packed_counts=False + host recount for larger k")
+    if screen == "class" and not 2 <= k <= 9:
+        raise ValueError(
+            f"the class screen needs 2 <= k <= 9 (4^k / 8 packed words, "
+            f"at most {gather.MAX_GATHER_WORDS}), got k={k}")
+    if class_bits not in (2, 4):
+        raise ValueError(f"class_bits must be 2 or 4, got {class_bits}")
+    if packed and block % 32:
+        raise ValueError(
+            f"block={block}: the packed vector needs block % 32 == 0")
+    fuse = screen == "class" and 4 <= k <= 8 and block >= 1024
+    if fuse and (block % 256 or block > MAX_BLOCK):
         raise NotImplementedError(
             f"block={block}: the fused screen kernel takes multiples of 256 "
             f"up to {MAX_BLOCK}")
-    if class_bits not in (2, 4):
-        raise ValueError(f"class_bits must be 2 or 4, got {class_bits}")
     dev = resolve_device(device)
 
     def fn(nbases, thr):
@@ -144,18 +190,48 @@ def make_span_pipeline(
         if n % block or n == 0:
             raise ValueError(f"n={n} is not a positive multiple of {block}")
         nb = n // block
-        aug, scored = aug_words(nbases, k, block)
-        flat = aug.reshape(-1)
-        counts = histogram.count_aug(flat, k)
-        mass = _rank_mass(counts)
-        total = counts.sum()
-        words = class_table_from_mass(
-            mass, total.to(torch.float32), class_bits)
-        tA, tB, maxA, maxB = screen_scan.fused_screen_scan(
-            words, flat, screen_thr_q(thr), class_bits, block)
+        thr_q = screen_thr_q(thr)
+        if fuse:
+            aug, scored = aug_words(nbases, k, block)
+            flat = aug.reshape(-1)
+            counts = histogram.count_aug(flat, k)
+            words = class_table_from_mass(
+                _rank_mass(counts), counts.sum().to(torch.float32),
+                class_bits)
+            tA, tB, maxA, maxB = screen_scan.fused_screen_scan(
+                words, flat, thr_q, class_bits, block)
+            codes = aug  # candidate rows are masked after the pull
+        else:
+            b2 = (nbases & 3).reshape(nb, block)
+            v2 = (nbases < 4).reshape(nb, block)
+            codes, kmer_valid = blocked_codes(b2, v2, k)
+            scored = blocked_scored(v2, kmer_valid)
+            flat, valid = codes.reshape(-1), kmer_valid.reshape(-1)
+            if screen == "sort":
+                counts = None
+                s_int, total = sort_screen_scores(
+                    flat, valid, scored.reshape(-1), k, thr_q)
+            else:
+                counts = histogram.count_spectrum(flat, valid, k)
+                mass = _rank_mass(counts)
+                total_f32 = counts.sum().to(torch.float32)
+                if screen == "class":
+                    s_int = gather.word_gather(
+                        class_table_from_mass(mass, total_f32), flat, thr_q)
+                else:
+                    s_int = fine_scores_int(
+                        fine_class_table(mass, total_f32)[flat], thr_q)
+            del valid, kmer_valid
+            tA, tB, maxA, maxB = blocked_scan_summaries_int(
+                s_int.reshape(nb, block), scored)
+            del s_int
+        if counts is not None:
+            total = counts.sum()
         top_idx = _top_blocks(tA, tB, maxA, maxB, min(cand_blocks, nb))
         sc_cand = scored[top_idx]
-        cand = aug[top_idx] & 0xFFFF
+        cand = codes[top_idx]
+        if fuse:
+            cand &= 0xFFFF
         if not packed:
             return {
                 "counts": counts,
@@ -169,13 +245,16 @@ def make_span_pipeline(
                 "scored": sc_cand,
             }
         return torch.cat([
-            counts,
+            *([counts] if packed_counts else []),
             total.reshape(1).to(torch.int32),
             tA, tB, maxA, maxB,
             top_idx.to(torch.int32),
             *pack_candidates(sc_cand, cand),
         ])
 
-    # candidate blocks always travel as 2-bit bases (block % 256 == 0)
-    fn.packed_bases = True
+    # the reference ships candidates as 2-bit bases whenever block % 16 == 0;
+    # its other layouts are unreachable (the scored flags need block % 32)
+    fn.packed_bases = packed
+    fn.packed_counts = packed_counts
+    fn.screen = screen
     return fn

@@ -100,17 +100,45 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 
 def test_unported_modes_raise(golden):
-    with pytest.raises(NotImplementedError):
+    # k = 2 and 9 now run (the class screen); mode="exact" does not yet
+    for k in (2, 9):
+        got = api.kmer_low_comp_regions(golden[:30_000], k, 100, 20.0,
+                                        device="cpu")
+        assert got.counts.shape == (1 << (2 * k),)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         api.kmer_low_comp_regions(golden, 8, 100, 20.0, mode="exact",
                                   device="cpu")
-    for k in (2, 9):
-        with pytest.raises(NotImplementedError):
+    for k in (1, 16):
+        with pytest.raises(ValueError):
             api.kmer_low_comp_regions(golden, k, 100, 20.0, device="cpu")
-    with pytest.raises(ValueError):
-        api.kmer_low_comp_regions(golden, 16, 100, 20.0, device="cpu")
     with pytest.raises(ValueError):
         api.kmer_low_comp_regions(golden, 8, 100, 20.0, thr=1.5,
                                   device="cpu")
+
+
+@pytest.mark.parametrize("k", [3, 9])
+def test_class_screen_k_equal_jax_fast_and_host(golden, k):
+    """k = 9 and k = 3 go through the non-fused class screen (K3, K4)."""
+    thr = 0.75 if k == 9 else 0.8
+    got = api.kmer_low_comp_regions(golden, k, 100, 20.0, thr=thr,
+                                    device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden, k, 100, 20.0, thr=thr,
+                                         backend="jax", mode="fast")
+    _same_result(got, want)
+    host = ref_api.kmer_low_comp_regions(golden, k, 100, 20.0, thr=thr,
+                                         backend="host")
+    assert np.array_equal(got.regions, host.regions)
+    assert len(got.regions) >= 1
+
+
+def test_k1_fails_in_both_packages(golden):
+    with pytest.raises(ValueError, match="k >= 2"):
+        api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,
+                                  device="cpu")
+    # the reference's class table cannot pack 4^1 ranks 8 a word either
+    with pytest.raises(TypeError, match="reshape"):
+        ref_api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,
+                                      backend="jax", mode="fast")
 
 
 def test_cuda_without_card_raises(golden):

@@ -15,8 +15,9 @@ import torch
 
 from kmer_spans_tpu_torch import api
 from kmer_spans_tpu_torch.oracle import golden_genome
-from kmer_spans_tpu_torch.ops import histogram, screen_scan
+from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
 from kmer_spans_tpu_torch.ops.convert import to_tensor
+from kmer_spans_tpu_torch.ops.gather import word_gather, word_gather_plain
 from kmer_spans_tpu_torch.ops.histogram import (
     count_aug,
     count_aug_plain,
@@ -175,6 +176,64 @@ def test_api_k12_on_card_equals_cpu(card, monkeypatch):
     seq = golden_genome()
     got = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device=card)
     want = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device="cpu")
+    assert len(got.regions) == 3 and api.exact_fallbacks == 0
+    assert np.array_equal(got.regions, want.regions)
+    assert np.array_equal(got.counts, want.counts)
+
+
+@pytest.mark.parametrize("n_words", [2, 8, 8192, 16384, 32768])
+def test_word_gather_kernel_matches_plain(card, n_words):
+    rng = np.random.default_rng(n_words)
+    words = to_tensor(rng.integers(-(2 ** 31), 2 ** 31, n_words,
+                                   dtype=np.int64).astype(np.int32), card)
+    thr_q = torch.tensor(3071, dtype=torch.int32, device=card)
+    n = (1 << 20) + 3  # not a multiple of 4
+    entry = rng.integers(0, 8 * n_words, n).astype(np.int32)
+    entry[5000:5000 + (1 << 17)] = 8 * n_words - 3  # 2^17 identical
+    entry[-4096:] = rng.integers(8 * n_words - 8, 8 * n_words, 4096)
+    x = to_tensor(entry, card)
+    before = gather.launches
+    for view in (x, x[1:], x[2:-1]):  # aligned and unaligned starts
+        got = word_gather(words, view, thr_q)
+        torch.cuda.synchronize()
+        assert torch.equal(got, word_gather_plain(words, view, thr_q))
+    assert gather.launches == before + 3
+    for bad in (1 << 16, 24):
+        with pytest.raises(ValueError):
+            word_gather(torch.zeros(bad, dtype=torch.int32, device=card), x,
+                        thr_q)
+
+
+def _planted(seed):
+    rng = np.random.default_rng(seed)
+    arr = rng.integers(0, 4, 64 * 8192).astype(np.uint8)
+    arr[rng.random(arr.size) < 0.001] = 4
+    arr[100_000:103_000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    return arr
+
+
+@pytest.mark.parametrize("k,launches", [(9, (1, 1)), (12, (2, 1))])
+def test_class_and_sort_pipelines_match_plain(card, k, launches,
+                                               monkeypatch):
+    """k = 9: the class screen (K3 once, K4); k = 12: the sort screen
+    (K3 twice, K4)."""
+    arr = _planted(k)
+    fn = make_span_pipeline(k, cand_blocks=16, packed=True,
+                            packed_counts=False, device=card)
+    before = histogram.histogram_launches, gather.launches
+    got = fn(arr, 0.75)
+    assert (histogram.histogram_launches - before[0],
+            gather.launches - before[1]) == launches
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    monkeypatch.setattr(gather, "word_gather", word_gather_plain)
+    assert torch.equal(got, fn(arr, 0.75))
+
+
+def test_api_k9_on_card_equals_cpu(card, monkeypatch):
+    monkeypatch.setattr(api, "exact_fallbacks", 0)
+    seq = golden_genome()
+    got = api.kmer_low_comp_regions(seq, 9, 100, 20.0, device=card)
+    want = api.kmer_low_comp_regions(seq, 9, 100, 20.0, device="cpu")
     assert len(got.regions) == 3 and api.exact_fallbacks == 0
     assert np.array_equal(got.regions, want.regions)
     assert np.array_equal(got.counts, want.counts)

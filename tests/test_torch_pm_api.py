@@ -117,5 +117,12 @@ def test_candidate_miss_reruns_on_the_device(monkeypatch):
 
 
 def test_k9_raises_naming_its_queue_item(golden):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        api.kmer_low_comp_regions(golden, 9, 100, 20.0, device="cpu")
+    # k = 9 now runs (the class screen, between the two pipelines); the
+    # device form of mode="exact" is what still raises, naming its item
+    got = api.kmer_low_comp_regions(golden, 9, 100, 20.0, device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden, 9, 100, 20.0, thr=0.75,
+                                         backend="jax", mode="fast")
+    _same_result(got, want)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        api.kmer_low_comp_regions(golden, 9, 100, 20.0, mode="exact",
+                                  device="cpu")

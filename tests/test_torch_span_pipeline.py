@@ -1,5 +1,6 @@
-"""The port's k <= 8 span pipeline against JAX's make_span_pipeline and the
-sequential oracle.
+"""The port's span pipeline against JAX's make_span_pipeline and the
+sequential oracle: the fused and non-fused class screens, the sort screen
+and the fine screen.
 
 Device outputs (dict and packed) must equal the reference's element for
 element on the same nbases: sizes are chosen so that every partial sum of
@@ -40,11 +41,22 @@ def _chain_rank_regions(seq, k, thr, min_w, min_s):
                         k, thr)
 
 
-def _run(seq, k, thr, min_w, min_s, block=1024, cand=32):
+def _run(seq, k, thr, min_w, min_s, block=1024, cand=32, screen="auto"):
     arr = _nbases(seq, block)
-    fn = make_span_pipeline(k, block=block, cand_blocks=cand, device="cpu")
-    out = {key: v.numpy() for key, v in fn(arr, thr).items()}
-    return finish_spans(out, arr.shape[0], thr, min_w, min_s, block=block)
+    fn = make_span_pipeline(k, block=block, cand_blocks=cand, screen=screen,
+                            device="cpu")
+    out = {key: None if v is None else v.numpy()
+           for key, v in fn(arr, thr).items()}
+    counts = None if out["counts"] is not None else count_spectrum(seq, k)[0]
+    return finish_spans(out, arr.shape[0], thr, min_w, min_s, block=block,
+                        counts=counts)
+
+
+def _plant(seq, spans):
+    s = list(seq)
+    for beg, unit, reps in spans:
+        s[beg:beg + len(unit) * reps] = unit * reps
+    return "".join(s)
 
 
 def _f32_exact(out):
@@ -130,12 +142,24 @@ def test_island_across_blocks(k):
 
 
 def test_unported_branches_raise():
-    for kw in (dict(k=9), dict(k=3), dict(k=12), dict(k=8, block=512),
-               dict(k=8, screen="sort"), dict(k=8, screen="fine")):
-        with pytest.raises(NotImplementedError):
-            make_span_pipeline(device="cpu", **kw)
+    # what now runs: the screen each k resolves to
+    for k, screen in ((2, "class"), (3, "class"), (9, "class"),
+                      (10, "sort"), (15, "sort")):
+        fn = make_span_pipeline(k, packed=True, device="cpu")
+        assert fn.screen == screen
+        assert fn.packed_counts == (screen != "sort")
+    assert make_span_pipeline(8, block=512, device="cpu").screen == "class"
+    assert make_span_pipeline(8, screen="fine", device="cpu").screen == "fine"
+    # what still raises: the fused kernel's block rule, and what the
+    # reference cannot run either
     with pytest.raises(NotImplementedError):
         make_span_pipeline(8, block=1100, device="cpu")
+    for kw in (dict(k=1), dict(k=10, screen="class"), dict(k=3, screen="sort"),
+               dict(k=16), dict(k=0, screen="fine"), dict(k=8, screen="x"),
+               dict(k=14, screen="fine", packed=True),
+               dict(k=8, block=1000, packed=True)):
+        with pytest.raises(ValueError):
+            make_span_pipeline(device="cpu", **kw)
 
 
 def test_bad_inputs_raise():
@@ -144,3 +168,174 @@ def test_bad_inputs_raise():
         fn(np.zeros(1500, np.uint8), 0.75)
     with pytest.raises(TypeError):
         fn(np.zeros(1024, np.int32), 0.75)
+
+
+def _match_jax(arr, k, thr=0.75, **kw):
+    """Dict and packed outputs of both packages on arr, element for
+    element; returns the reference's dict."""
+    want = {key: None if v is None else np.asarray(v)
+            for key, v in jax_pipeline(k, **kw)(
+                jnp.asarray(arr), jnp.float32(thr)).items()}
+    assert _f32_exact(want)
+    got = make_span_pipeline(k, device="cpu", **kw)(arr, thr)
+    assert got.keys() == want.keys()
+    for key in want:
+        if want[key] is None:
+            assert got[key] is None, key
+        else:
+            assert np.array_equal(got[key].numpy(), want[key]), key
+    if kw.get("block", 8192) % 32 == 0:
+        fn_j = jax_pipeline(k, packed=True, **kw)
+        want_p = np.asarray(fn_j(jnp.asarray(arr), jnp.float32(thr)))
+        fn_p = make_span_pipeline(k, packed=True, device="cpu", **kw)
+        got_p = fn_p(arr, thr)
+        assert got_p.dtype == torch.int32
+        assert np.array_equal(got_p.numpy(), want_p)
+        assert (fn_p.packed_bases, fn_p.packed_counts, fn_p.screen) == (
+            fn_j.packed_bases, fn_j.packed_counts, fn_j.screen)
+    return want
+
+
+def _island_arr(k, block, n=12 * 1024, seed=0):
+    rng = np.random.default_rng(seed + 31 * k + block)
+    s = list(random_seq(rng, n, n_prob=0.002))
+    s[2000:2500] = "AG" * 250
+    s[6000:8100] = "TTAGGC" * 350  # across blocks
+    return _nbases("".join(s), block)
+
+
+@pytest.mark.parametrize("k,block", [(2, 1024), (2, 256), (3, 1024),
+                                     (3, 256), (9, 1024), (9, 256),
+                                     (8, 512)])
+def test_class_screen_outputs_match_jax(k, block):
+    arr = _island_arr(k, block)
+    want = _match_jax(arr, k, block=block, cand_blocks=5)
+    assert want["counts"].shape == (1 << (2 * k),)
+
+
+@pytest.mark.parametrize("k", [10, 12])
+def test_sort_screen_outputs_match_jax(k):
+    # thr 0.5 centres the scores, which keeps the reference's f32
+    # composition exact
+    arr = _island_arr(k, 1024, n=8 * 1024)
+    want = _match_jax(arr, k, thr=0.5, block=1024, cand_blocks=5)
+    assert want["counts"] is None
+
+
+@pytest.mark.parametrize("k", [8, 10])
+def test_fine_screen_outputs_match_jax(k):
+    arr = _island_arr(k, 1024, n=8 * 1024)
+    _match_jax(arr, k, thr=0.5, block=1024, cand_blocks=5, screen="fine")
+
+
+def test_non_16_aligned_block_layout():
+    """block % 16 != 0: the candidate rows of the dict equal the
+    reference's; its packed vector cannot be built there (the scored flags
+    go 32 a word), so the port refuses it and the reference fails too."""
+    arr = _island_arr(4, 1000, n=10_000)
+    _match_jax(arr, 4, block=1000, cand_blocks=3)
+    with pytest.raises(TypeError):
+        jax_pipeline(4, block=1000, cand_blocks=3, packed=True)(
+            jnp.asarray(arr), jnp.float32(0.75))
+    with pytest.raises(ValueError):
+        make_span_pipeline(4, block=1000, cand_blocks=3, packed=True,
+                           device="cpu")
+
+
+@pytest.mark.parametrize("k,block", [(2, 1024), (3, 256), (9, 1024),
+                                     (9, 512), (8, 512)])
+def test_class_screen_regions_match_oracle(k, block):
+    rng = np.random.default_rng(60 + k)
+    seq = _plant(random_seq(rng, 30_000, n_prob=0.003),
+                 [(5000, "AG", 250), (17000, "CCTGA", 130)])
+    thr = 0.75 if k > 3 else 0.8
+    res = _run(seq, k, thr, 30, 5.0, block=block)
+    assert not res.fallback
+    expect = _chain_rank_regions(seq, k, thr, 30, 5.0)
+    assert len(expect) >= 1
+    assert [(r[1], r[2], r[3]) for r in res.regions] == \
+        [(e[1], e[2], e[3]) for e in expect]  # f64 scores bit-identical
+
+
+@pytest.mark.parametrize("k,screen", [(10, "sort"), (11, "sort"),
+                                      (12, "sort"), (8, "fine"),
+                                      (10, "fine")])
+def test_sort_and_fine_regions_match_oracle(k, screen):
+    rng = np.random.default_rng(100 + k)
+    seq = _plant(random_seq(rng, 50_000, n_prob=0.003),
+                 [(6000, "AG", 300), (20000, "CCTGA", 130),
+                  (41000, "T", 500)])
+    res = _run(seq, k, 0.75, 30, 5.0, screen=screen)
+    assert not res.fallback
+    expect = _chain_rank_regions(seq, k, 0.75, 30, 5.0)
+    assert len(expect) >= 2
+    assert [(r[1], r[2], r[3]) for r in res.regions] == \
+        [(e[1], e[2], e[3]) for e in expect]
+
+
+def test_sort_screen_auto_selected():
+    """"auto" resolves to the sort screen at k >= 10 (counts is None) and
+    still matches the oracle through the host-recount finisher."""
+    rng = np.random.default_rng(17)
+    seq = _plant(random_seq(rng, 30_000), [(5000, "A", 4000)])
+    assert make_span_pipeline(10, device="cpu").screen == "sort"
+    res = _run(seq, 10, 0.75, 30, 5.0, cand=24)
+    assert not res.fallback
+    expect = _chain_rank_regions(seq, 10, 0.75, 30, 5.0)
+    assert len(expect) >= 1
+    assert [(r[1], r[2], r[3]) for r in res.regions] == \
+        [(e[1], e[2], e[3]) for e in expect]
+
+
+def test_sort_screen_packed_payload():
+    """packed=True at k >= 10: no spectrum in the vector (packed_counts
+    forced off); the finisher replays from the host recount."""
+    k = 10
+    rng = np.random.default_rng(7)
+    seq = _plant(random_seq(rng, 40_000, n_prob=0.002),
+                 [(9000, "AG", 350), (25000, "GATTA", 140)])
+    arr = _nbases(seq, 1024)
+    n = arr.shape[0]
+    fn = make_span_pipeline(k, block=1024, cand_blocks=24, packed=True,
+                            packed_counts=True, device="cpu")
+    assert not fn.packed_counts
+    got = unpack_outputs(fn(arr, 0.72).numpy(), k, n, 1024, 24,
+                         packed_bases=fn.packed_bases,
+                         packed_counts=fn.packed_counts, lazy_codes=True)
+    assert got["counts"] is None
+    counts, _ = count_spectrum(seq, k)
+    res = finish_spans(got, n, 0.72, 30, 5.0, block=1024, counts=counts)
+    assert not res.fallback
+    expect = _chain_rank_regions(seq, k, 0.72, 30, 5.0)
+    assert len(expect) >= 2
+    assert [(r[1], r[2], r[3]) for r in res.regions] == \
+        [(e[1], e[2], e[3]) for e in expect]
+
+
+def test_sort_screen_k14_big_rank_path():
+    """k = 14: sort screen, native host recount, and the candidate-only
+    native rank path of finish_spans (no 4^14 f64 chain table)."""
+    from kmer_spans_tpu.utils import native
+    from kmer_spans_tpu_torch.spans.finish import host_rank_chain
+
+    if not native.available():
+        pytest.skip("native library unavailable")
+    k = 14
+    rng = np.random.default_rng(41)
+    seq = _plant(random_seq(rng, 60_000, n_prob=0.002),
+                 [(8000, "AG", 400), (30000, "CCTGA", 180)])
+    arr = _nbases(seq, 1024)
+    n = arr.shape[0]
+    fn = make_span_pipeline(k, block=1024, cand_blocks=24, packed=True,
+                            device="cpu")
+    got = unpack_outputs(fn(arr, 0.75).numpy(), k, n, 1024, 24,
+                         packed_bases=fn.packed_bases,
+                         packed_counts=fn.packed_counts, lazy_codes=True)
+    counts, nk = native.host_spectrum(arr, k)
+    res = finish_spans(got, n, 0.75, 30, 5.0, block=1024, counts=counts)
+    assert not res.fallback
+    expect = find_regions(seq, 0, 30, 5.0,
+                          host_rank_chain(counts, int(nk)), k, 0.75)
+    assert len(expect) >= 2
+    assert [(r[1], r[2], r[3]) for r in res.regions] == \
+        [(e[1], e[2], e[3]) for e in expect]
