@@ -6,15 +6,20 @@
 Run from the repository root.  Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds the CUDA kernels from kmer_spans_tpu_torch/csrc/;
+  2. build: nvcc builds the CUDA kernels from kmer_spans_tpu_torch/csrc/
+     (one nvcc per source, in parallel), and the C++ compiler the host
+     library (csrc/host/), which must load;
   3. each kernel against its plain PyTorch version on the card, exact, on
      seeded inputs (random aug words with invalid positions, a stretch of
-     2^17 identical codes, blocks with no scored position; for the value
-     histogram sizes 100 to 2^19, 2^17 identical values, all invalid, an
-     unaligned view; for the class gather tables of 2 to 2^15 words,
-     random entries, 2^17 identical entries, entries all in the last
-     word, a length that is not a multiple of 4, an unaligned view, and
-     the table sizes it must refuse);
+     2^17 identical codes; for the fused screen blocks of 256 to 32768
+     with 2- and 4-bit classes, a block with no scored position, grids
+     with fewer blocks than CTAs, tables of 32 to 2^14 words; for the
+     value histogram sizes 1 to 2^20 in its cluster and sliced forms,
+     2^17 identical values, all invalid, offset views of values and valid
+     whose alignments agree and differ; for the class gather tables of 2
+     to 2^15 words, random entries, 2^17 identical entries, entries all in
+     the last word, a length that is not a multiple of 4, an unaligned
+     view, and the table sizes it must refuse);
   4. the golden genome through api.kmer_low_comp_regions(mode="fast") on
      the card at k = 8 (exactly the 3 planted regions), 9, 3 and 12, equal
      (==) to the sequential oracle's rank chain, with no rerun;
@@ -23,11 +28,17 @@ Run from the repository root.  Phases, each of which raises on failure:
      -> unpack_outputs -> finish_spans; kernel launch counts read around
      this run; the packed vector and regions must equal the same run with
      the plain versions on the card;
-  6. each kernel and its plain version timed (CUDA events) at the main
-     paths' shapes: the aug words of that genome (N positions, block
-     8192, k = 8), the k = 13 pm screen's masked run lengths (N values
-     into 256 bins), and the class gather's k = 9 codes (32768 words) and
-     k = 12 sort-screen entries (16384 words);
+  6. each kernel, its plain version and, where one exists, the one
+     PyTorch call that computes the same function (torch.bincount on the
+     input already masked) timed in turns (CUDA events) at the main
+     paths' shapes, beside the least time the card could take (bytes
+     moved over 3.35 TB/s): the aug words of that genome (N positions,
+     block 8192, k = 8; K2 with 4- and 2-bit classes), the value
+     histogram at the k = 9 count (4^9 bins, both forms), the k = 13 pm
+     screen's run lengths (256 bins) and the k = 12 sort screen's two run
+     histograms (65536 bins each, both forms), and the class gather's
+     k = 9 codes (32768 words) and k = 12 sort-screen entries (16384
+     words);
   7. the full-size k >= 10 path on the same genome, for k = 12 (packed
      key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
      unpack_pm_outputs -> finish_pm_spans, launch counts read around each
@@ -59,6 +70,10 @@ import numpy as np
 
 THR, MIN_W, MIN_S = 0.75, 100, 20.0
 BLOCK = 8192
+#: NVIDIA's published H100 SXM peaks: HBM3 bytes/s and non-tensor 32-bit
+#: operations/s; a bound is the larger of bytes and operations over them
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -130,9 +145,11 @@ def check_kernels(dev, seed: int) -> dict:
     from kmer_spans_tpu_torch.ops.convert import to_tensor
     from kmer_spans_tpu_torch.ops.gather import word_gather, word_gather_plain
     from kmer_spans_tpu_torch.ops.histogram import (
+        SLICE_BINS,
         count_aug,
         count_aug_plain,
         histogram,
+        histogram_kernel,
         histogram_plain,
     )
     from kmer_spans_tpu_torch.ops.screen_scan import (
@@ -169,24 +186,40 @@ def check_kernels(dev, seed: int) -> dict:
             continue
         raise AssertionError(f"word_gather took a table of {nw} words")
     log("  word_gather refuses tables of 2^16 and 24 words")
-    for size in (100, 256, 4096, 65536, 1 << 19):
+    for size in (1, 100, 1 << 15, (1 << 15) + 1, 65536, 1 << 18,
+                 (1 << 18) + 1, 1 << 20):
         n = (1 << 22) + 5
         values = rng.integers(-3, size + 40, n).astype(np.int32)
         valid = rng.random(n) < 0.8
         values[7000:7000 + (1 << 17)] = min(2, size - 1)  # 2^17 identical
         valid[7000:7000 + (1 << 17)] = True
         x, m = to_tensor(values, dev), to_tensor(valid, dev)
-        # all valid, aligned; unaligned view; all invalid
-        for args in ((x, m), (x[1:], m[1:]), (x, torch.zeros_like(m))):
-            e = max_abs_err(histogram(*args, size),
-                            histogram_plain(*args, size))
-            torch.cuda.synchronize()
-            if e:
-                raise AssertionError(f"histogram size={size}: max |err| {e}")
+        cases = (
+            (x, m),                      # aligned
+            (x[1:], m[1:]),              # offset views that line up
+            (x[1:-1], m[2:]),            # offset views that do not
+            (x[3:], m[:-3]),
+            (x, torch.zeros_like(m)),    # all invalid
+        )
+        forms = (True, False) if size > SLICE_BINS else (False,)
+        for cluster in forms:
+            for args in cases:
+                e = max_abs_err(histogram_kernel(*args, size, cluster),
+                                histogram_plain(*args, size))
+                torch.cuda.synchronize()
+                if e:
+                    raise AssertionError(
+                        f"histogram size={size} cluster={cluster}: "
+                        f"max |err| {e}")
         if histogram(x, torch.zeros_like(m), size).any():
             raise AssertionError("histogram counted an invalid value")
-        log(f"  histogram size={size}: equal to plain (n={n:,}, 2^17 "
-            "identical values, unaligned view, all invalid)")
+        e = max_abs_err(histogram(x, m, size), histogram_plain(x, m, size))
+        if e:
+            raise AssertionError(f"histogram size={size}: max |err| {e}")
+        log(f"  histogram size={size}: equal to plain in the "
+            f"{' and '.join('cluster' if c else 'sliced' for c in forms)} "
+            f"form (n={n:,}, 2^17 identical values, offset views aligned "
+            "alike and unlike, all invalid)")
     for k in (4, 6, 8):
         aug = aug_case(rng, (1 << 22) + 5, k)
         aug[7000:7000 + (1 << 17)] = (1 << 16) | 9  # 2^17 identical codes
@@ -199,35 +232,92 @@ def check_kernels(dev, seed: int) -> dict:
             err["count_aug"] = max(err["count_aug"], e)
         log(f"  count_aug k={k}: equal to plain (n={aug.size:,}, "
             "2^17 identical codes)")
-    for k in (4, 8):
-        for cb in (2, 4):
-            for block in (1024, 8192):
-                nw = (1 << (2 * k)) // (32 // cb)
-                words = rng.integers(-(2 ** 31), 2 ** 31, nw,
-                                     dtype=np.int64).astype(np.int32)
-                aug = aug_case(rng, 40 * block, k)
-                aug[block:2 * block] &= ~(1 << 17)  # no scored position
-                args = (to_tensor(words, dev), to_tensor(aug, dev),
-                        torch.tensor(3071, dtype=torch.int32, device=dev),
-                        cb, block)
-                got = fused_screen_scan(*args)
-                want = fused_screen_scan_plain(*args)
-                torch.cuda.synchronize()
-                e = max_abs_err(got, want)
-                if e:
-                    raise AssertionError(
-                        f"fused_screen_scan k={k} class_bits={cb} "
-                        f"block={block}: max |err| {e}")
-                if got[1][1].item() > -(1 << 29):
-                    raise AssertionError("no-scored sentinel lost")
-                err["fused_screen_scan"] = max(err["fused_screen_scan"], e)
-        log(f"  fused_screen_scan k={k}: equal to plain (class_bits 2/4, "
-            "block 1024/8192)")
+    for cb in (2, 4):
+        for k, nw in ((4, None), (8, None), (8, 1 << 14)):
+            nw = nw or (1 << (2 * k)) // (32 // cb)  # 2^13 words at k=8
+            words = to_tensor(rng.integers(-(2 ** 31), 2 ** 31, nw,
+                                           dtype=np.int64).astype(np.int32),
+                              dev)
+            for block in (256, 768, 1024, 3072, 8192, 16384, 32768):
+                # many blocks a CTA; and fewer blocks than CTAs
+                for nblocks in (max(3, (1 << 20) // block), 3):
+                    aug = aug_case(rng, nblocks * block, k)
+                    aug[block:2 * block] &= ~(1 << 17)  # no scored position
+                    aug[2 * block:3 * block] = (1 << 17) | (1 << 16) | 5
+                    args = (words, to_tensor(aug, dev), thr_q, cb, block)
+                    got = fused_screen_scan(*args)
+                    want = fused_screen_scan_plain(*args)
+                    torch.cuda.synchronize()
+                    e = max_abs_err(got, want)
+                    if e:
+                        raise AssertionError(
+                            f"fused_screen_scan k={k} class_bits={cb} "
+                            f"words={nw} block={block} nblocks={nblocks}: "
+                            f"max |err| {e}")
+                    if got[1][1].item() > -(1 << 29):
+                        raise AssertionError("no-scored sentinel lost")
+            log(f"  fused_screen_scan class_bits={cb} k={k} table={nw} "
+                "words: equal to plain (blocks 256 to 32768, a block with "
+                "no scored position, fewer blocks than CTAs)")
+    try:
+        x = to_tensor(aug_case(rng, 4 * 1024 + 1, 8), dev)
+        fused_screen_scan(words, x[1:], thr_q, 4, 1024)
+    except ValueError:
+        log("  fused_screen_scan refuses aug off a 16-byte boundary")
+    else:
+        raise AssertionError("fused_screen_scan took a misaligned aug")
     return err
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes)}
+
+
+def in_turns(label: str, kern, plain, library=None, extra=()) -> dict:
+    """Time plain, library, kernel(s) in turns on one card: plain, library,
+    kernel, extra..., extra..., kernel, library, plain.  Returns mean ms."""
+    p1 = time_ms(plain, 3)
+    l1 = time_ms(library, 5) if library else None
+    t1 = time_ms(kern, 5)
+    x1 = [time_ms(f, 5) for _, f in extra]
+    x2 = [time_ms(f, 5) for _, f in reversed(extra)][::-1]
+    t2 = time_ms(kern, 5)
+    l2 = time_ms(library, 5) if library else None
+    p2 = time_ms(plain, 3)
+    out = {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2,
+           "library_ms": (l1 + l2) / 2 if library else None}
+    for (name, _), a, b in zip(extra, x1, x2):
+        out[name] = (a + b) / 2
+    more = "".join(f", {name[:-3]} {a:.4f}/{b:.4f} ms"
+                   for (name, _), a, b in zip(extra, x1, x2))
+    lib = f", library {l1:.4f}/{l2:.4f} ms" if library else ""
+    log(f"  {label}: kernel {t1:.4f}/{t2:.4f} ms{more}, plain "
+        f"{p1:.4f}/{p2:.4f} ms{lib}")
+    return out
+
+
+def shape_entry(shape: str, timing: dict, bnd: dict) -> dict:
+    entry = {"shape": shape, **timing, **bnd}
+    log(f"    bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+        f"{bnd['bytes']:,} bytes)")
+    return entry
+
+
+def main_entry(shapes: list) -> dict:
+    """A kernel's JSON numbers: those of its first (main-path) shape, with
+    every shape beside them."""
+    return {**{k: v for k, v in shapes[0].items() if k not in ("shape",
+                                                               "err")},
+            "shapes": shapes}
+
+
 def time_kernels(dev, nbases_dev) -> dict:
-    """Phase 6: kernel and plain version at the main path's shapes."""
+    """Phase 6, K1 and K2 on the k = 8 path's aug words."""
     import torch
 
     from kmer_spans_tpu_torch.ops.gather import (
@@ -244,6 +334,7 @@ def time_kernels(dev, nbases_dev) -> dict:
 
     aug, _ = aug_words(nbases_dev, 8, BLOCK)
     flat = aug.reshape(-1)
+    n = flat.numel()
     counts = count_aug(flat, 8)
     if max_abs_err(counts, count_aug_plain(flat, 8)):
         raise AssertionError("count_aug differs from plain at full size")
@@ -257,36 +348,68 @@ def time_kernels(dev, nbases_dev) -> dict:
                        fused_screen_scan_plain(*args)):
             raise AssertionError("fused_screen_scan differs from plain at "
                                  "full size")
-    out = {}
-    # the JSON line reports the main path's 4-bit classes; 2-bit classes
-    # (bench.py's choice at thr >= 0.7) are logged beside them
-    for name, label, kern, plain in (
-            ("count_aug", "count_aug", lambda: count_aug(flat, 8),
-             lambda: count_aug_plain(flat, 8)),
-            ("fused_screen_scan", "fused_screen_scan (4-bit)",
-             lambda: fused_screen_scan(*k2[4]),
-             lambda: fused_screen_scan_plain(*k2[4])),
-            (None, "fused_screen_scan (2-bit)",
-             lambda: fused_screen_scan(*k2[2]),
-             lambda: fused_screen_scan_plain(*k2[2]))):
-        # in turns on one card: plain, kernel, kernel, plain
-        p1 = time_ms(plain, 3)
-        t1 = time_ms(kern, 5)
-        t2 = time_ms(kern, 5)
-        p2 = time_ms(plain, 3)
-        if name:
-            out[name] = {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2}
-        log(f"  {label} at {flat.numel():,} positions: kernel "
-            f"{t1:.4f}/{t2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    # the library yardstick of K1: one bincount of the codes already masked
+    code = flat & 0xFFFF
+    premasked = code[(((flat >> 16) & 1) == 1) & (code < (1 << 16))]
+    del code
+    k1 = in_turns(f"count_aug (k = 8, {n:,} positions)",
+                  lambda: count_aug(flat, 8), lambda: count_aug_plain(flat, 8),
+                  lambda: torch.bincount(premasked, minlength=1 << 16))
+    del premasked
+    out = {"count_aug": main_entry([shape_entry(
+        "k = 8 aug words, 4^8 bins", k1, bound(n * 4 + (1 << 16) * 4, n))])}
+    shapes = []
+    for cb in (4, 2):
+        t = in_turns(f"fused_screen_scan ({cb}-bit classes, {n:,} "
+                     "positions)", lambda: fused_screen_scan(*k2[cb]),
+                     lambda: fused_screen_scan_plain(*k2[cb]))
+        words = k2[cb][0].numel()
+        shapes.append(shape_entry(
+            f"k = 8 aug words, {cb}-bit classes, block {BLOCK}", t,
+            bound(n * 4 + words * 4 + 4 * (n // BLOCK) * 4, n)))
+    # the JSON line's numbers are the main path's 4-bit classes
+    out["fused_screen_scan"] = main_entry(shapes)
     return out
 
 
-def time_histogram(dev, nbases_dev) -> dict:
-    """Phase 6, K3: the k = 13 pm screen's value histogram, kernel and
-    plain version, on that screen's own inputs."""
+def hist_entry(label: str, values, valid, size: int) -> dict:
+    """Phase 6, K3 at one shape: the wrapper (with its form rule), each
+    form above 2^15 bins, the plain version and bincount on the input
+    already masked, in turns; the bound; max |err| against plain."""
     import torch
 
     from kmer_spans_tpu_torch.ops import histogram as hist
+
+    want = hist.histogram_plain(values, valid, size)
+    err = max_abs_err(hist.histogram(values, valid, size), want)
+    extra = ()
+    if size > hist.SLICE_BINS:
+        extra = tuple(
+            (f"{name}_ms", lambda c=c: hist.histogram_kernel(values, valid,
+                                                             size, c))
+            for name, c in (("cluster", True), ("sliced", False)))
+        for _, f in extra:
+            err = max(err, max_abs_err(f(), want))
+    if err:
+        raise AssertionError(f"histogram differs from plain at {label}: "
+                             f"max |err| {err}")
+    premasked = values[valid & (values >= 0) & (values < size)]
+    n = values.numel()
+    t = in_turns(f"histogram ({label}, {int(valid.sum()):,} of {n:,} "
+                 f"valid, {size} bins; form "
+                 f"{'cluster' if hist.cluster_form(size) else 'one CTA or sliced'})",
+                 lambda: hist.histogram(values, valid, size),
+                 lambda: hist.histogram_plain(values, valid, size),
+                 lambda: torch.bincount(premasked, minlength=size), extra)
+    return {**shape_entry(f"{label}, {size} bins", t,
+                          bound(n * 5 + size * 4, n)), "err": err}
+
+
+def time_histogram(dev, nbases_dev) -> dict:
+    """Phase 6, K3: the k = 13 pm screen's value histogram, on that
+    screen's own inputs."""
+    import torch
+
     from kmer_spans_tpu_torch.ops.blocked import blocked_codes
     from kmer_spans_tpu_torch.ops.pmscreen import pm_params, sorted_runs
 
@@ -300,28 +423,14 @@ def time_histogram(dev, nbases_dev) -> dict:
     nbins = pm_params(k, None, n=n)[3]
     vals, valid = torch.clamp(v, max=nbins - 1), head & real
     del head, v, real
-    err = max_abs_err(hist.histogram(vals, valid, nbins),
-                      hist.histogram_plain(vals, valid, nbins))
-    if err:
-        raise AssertionError(f"histogram differs from plain at full size: "
-                             f"max |err| {err}")
-    masked = torch.where(valid, vals, -1)
-    p1 = time_ms(lambda: hist.histogram_plain(vals, valid, nbins), 3)
-    t1 = time_ms(lambda: hist.histogram(vals, valid, nbins), 5)
-    t2 = time_ms(lambda: hist.histogram(vals, valid, nbins), 5)
-    p2 = time_ms(lambda: hist.histogram_plain(vals, valid, nbins), 3)
-    bare = time_ms(
-        lambda: hist._launch("kst_histogram", masked, nbins, nbins), 5)
-    log(f"  histogram (k = 13 run lengths, {int(valid.sum()):,} of {n:,} "
-        f"valid, {nbins} bins): kernel {t1:.4f}/{t2:.4f} ms (the kernel "
-        f"alone, on masked input: {bare:.4f} ms), plain {p1:.4f}/{p2:.4f} ms")
-    return {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2, "err": err}
+    return hist_entry("k = 13 pm run lengths", vals, valid, nbins)
 
 
-def time_word_gather(dev, nbases_dev) -> dict:
-    """Phase 6, K4: the class gather at the k = 9 class screen's codes
-    (32768 words) and the k = 12 sort screen's entries (16384 words),
-    kernel and plain version, each on its path's own table."""
+def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
+    """Phase 6, K4 at the k = 9 class screen's codes (32768 words) and the
+    k = 12 sort screen's entries (16384 words), each on its path's own
+    table; and K3 at those paths' shapes (the k = 9 count, the sort
+    screen's two run histograms)."""
     import torch
 
     from kmer_spans_tpu_torch.ops import gather, sortscreen
@@ -336,11 +445,12 @@ def time_word_gather(dev, nbases_dev) -> dict:
         (nbases_dev < 4).reshape(nb, BLOCK)
     thr_q = gather.screen_thr_q(
         torch.tensor(THR, dtype=torch.float32, device=dev))
-    out = {}
+    shapes, k3 = [], []
     for k in (9, 12):
         codes, kv = blocked_codes(b2, v2, k)
         codes, kv = codes.reshape(-1), kv.reshape(-1)
         if k == 9:
+            k3.append(hist_entry("k = 9 codes", codes, kv, 1 << 18))
             counts = count_spectrum(codes, kv, k)
             words = gather.class_table_from_mass(
                 _rank_mass(counts), counts.sum().to(torch.float32))
@@ -349,29 +459,36 @@ def time_word_gather(dev, nbases_dev) -> dict:
             skey, _, head, v, real = sorted_runs(codes, kv, k)
             hb = (skey >> (2 * k - 8)) & 255
             vmax, v2_ = sortscreen.VMAX, sortscreen.V2
+            mask = head & real
+            k3.append(hist_entry("k = 12 sort screen, runs by value",
+                                 torch.clamp(v, max=vmax - 1), mask, vmax))
+            k3.append(hist_entry("k = 12 sort screen, runs by value and "
+                                 "high byte",
+                                 torch.clamp(v, max=v2_ - 1) * 256 + hb,
+                                 mask & (v < v2_), v2_ * 256))
             words = sortscreen.rank_ub_tables(
-                *sortscreen.rank_ub_histograms(v, hb, head & real, vmax, v2_),
+                *sortscreen.rank_ub_histograms(v, hb, mask, vmax, v2_),
                 kv.sum(dtype=torch.int32), vmax, v2_)
             entry = sortscreen.rank_ub_entries(v, hb, vmax, v2_)
-            del skey, head, v, real, hb
+            del skey, head, v, real, hb, mask
         del codes, kv
         err = max_abs_err(gather.word_gather(words, entry, thr_q),
                           gather.word_gather_plain(words, entry, thr_q))
         if err:
             raise AssertionError(f"word_gather differs from plain at full "
                                  f"size, k={k}: max |err| {err}")
-        p1 = time_ms(lambda: gather.word_gather_plain(words, entry, thr_q), 3)
-        t1 = time_ms(lambda: gather.word_gather(words, entry, thr_q), 5)
-        t2 = time_ms(lambda: gather.word_gather(words, entry, thr_q), 5)
-        p2 = time_ms(lambda: gather.word_gather_plain(words, entry, thr_q), 3)
-        log(f"  word_gather (k = {k} {'codes' if k == 9 else 'sort entries'}"
-            f", {entry.numel():,} entries, {words.numel()} words): kernel "
-            f"{t1:.4f}/{t2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
-        # the JSON line reports the k = 9 class screen's shape
-        out.setdefault("ms", (t1 + t2) / 2)
-        out.setdefault("plain_ms", (p1 + p2) / 2)
+        t = in_turns(
+            f"word_gather (k = {k} {'codes' if k == 9 else 'sort entries'}"
+            f", {entry.numel():,} entries, {words.numel()} words)",
+            lambda: gather.word_gather(words, entry, thr_q),
+            lambda: gather.word_gather_plain(words, entry, thr_q))
+        m = entry.numel()
+        shapes.append(shape_entry(
+            f"k = {k} {'codes' if k == 9 else 'sort entries'}, "
+            f"{words.numel()} words", t, bound(m * 8 + words.numel() * 4, m)))
         del entry, words
-    return out
+    # the JSON line reports the k = 9 class screen's shape
+    return main_entry(shapes), k3
 
 
 def golden_phase(dev, k: int) -> None:
@@ -639,6 +756,7 @@ def main(argv=None) -> int:
 
     log("phase 2: build")
     from kmer_spans_tpu_torch.ops import _build
+    from kmer_spans_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     path, diag = _build.compile_library()
@@ -647,6 +765,12 @@ def main(argv=None) -> int:
     for line in diag.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the host library did not build or load: "
+                             f"{native.build()}")
+    log(f"  host library {native.library_path().name} loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("phase 3: kernels against their plain versions")
     err = check_kernels(dev, args.seed)
@@ -659,12 +783,14 @@ def main(argv=None) -> int:
     log("phase 5: full-size k = 8 path")
     launches, nbases_dev = full_size_phase(dev, nbases, card)
 
-    log("phase 6: kernel and plain times at the main paths' shapes "
-        f"[{card}]")
+    log("phase 6: kernel, plain and library times at the main paths' "
+        f"shapes [{card}]")
     times = time_kernels(dev, nbases_dev)
-    times["histogram"] = time_histogram(dev, nbases_dev)
-    err["histogram"] = max(err["histogram"], times["histogram"]["err"])
-    times["word_gather"] = time_word_gather(dev, nbases_dev)
+    k3 = [time_histogram(dev, nbases_dev)]
+    times["word_gather"], more = time_word_gather(dev, nbases_dev)
+    k3 = more[:1] + k3 + more[1:]  # k = 9 count first: the JSON line's
+    times["histogram"] = main_entry(k3)
+    err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
 
     log("phase 7: full-size k >= 10 pm path")
@@ -675,8 +801,9 @@ def main(argv=None) -> int:
                                         card).items():
         launches[name] = launches.get(name, 0) + count
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or any(
+            m.split(".")[0] == "kmer_spans_tpu" for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
     sources = {
         "count_aug": ("kmer_spans_tpu_torch/csrc/count_aug.cu",
                       "kmer_spans_tpu/ops/pallas_kernels.py:145"),
@@ -687,10 +814,11 @@ def main(argv=None) -> int:
         "word_gather": ("kmer_spans_tpu_torch/csrc/word_gather.cu",
                         "kmer_spans_tpu/ops/gather.py:184"),
     }
+    log(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"]}
+         **times[name]}
         for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,14 @@
 """kmer_spans_tpu_torch — the k-mer span engine in PyTorch, for NVIDIA Hopper.
 
 A port of ``kmer_spans_tpu`` (the JAX/TPU package beside it, which stays
-the reference).  Plain tensor code is PyTorch; the TPU kernels of the
-k <= 8 span pipeline (the spectrum count and the fused screen) and of the
-10 <= k <= 15 pm pipeline (the value histogram) are CUDA C++ kernels for
-sm_90a (``csrc/``), each with a plain PyTorch version that runs wherever
-its input lies on the CPU.
+the reference).  Plain tensor code is PyTorch; the TPU kernels of the span
+pipelines (the spectrum count, the fused screen, the value histogram and
+the class gather) are CUDA C++ kernels for sm_90a (``csrc/``), each with a
+plain PyTorch version that runs wherever its input lies on the CPU.
 
-Host-only modules of the reference that import no JAX (encoding, oracle,
-stats, spans.extract, utils.native, utils.testgen) are reused as they are.
+The port imports nothing of ``kmer_spans_tpu``: the host code it needs
+(encoding, oracle, stats.ranks, spans.extract and the host C++ library
+behind utils.native) is its own copy.
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,9 @@ Counterpart of ``kmer_spans_tpu/api.py`` kmer_low_comp_regions in its
 device form (mode="fast"), for 2 <= k <= 9 (the class screen of
 spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
 and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py).
-Results are the reference's ``RegionResult``: region positions and f64
-scores are exactly the sequential reference's (candidates are replayed
-on the host through the exact rank chain).
+Results carry the reference's ``RegionResult`` fields: region positions
+and f64 scores are exactly the sequential reference's (candidates are
+replayed on the host through the exact rank chain).
 
 Where the device step cannot cover every candidate, the call reruns it on
 the same device and counts each rerun in ``exact_fallbacks``: with twice
@@ -21,23 +21,55 @@ not counted.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 
 import numpy as np
 import torch
 
-from kmer_spans_tpu.api import RegionResult, _as_region_array, _as_seq_list
-from kmer_spans_tpu.encoding import MAX_K
-from kmer_spans_tpu.utils import native
-
 from .device import resolve_device
+from .encoding import MAX_K, PackedSeq, pack
 from .ops.pmscreen import pm_params
 from .spans.finish import finish_spans, host_rank_mass
 from .spans.pipeline import make_span_pipeline
 from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
 from .spans.pm_pipeline import make_pm_span_pipeline
+from .utils import native
 
 #: device reruns after a candidate- or list-capacity overflow
 exact_fallbacks = 0
+
+_REGION_DTYPE = np.dtype(
+    [
+        ("seq_id", np.int32),
+        ("beg", np.int32),
+        ("end", np.int32),
+        ("score", np.float64),
+        ("entropy", np.float64),  # always 0, as in the reference
+    ]
+)
+
+
+@dataclasses.dataclass
+class RegionResult:
+    """What kmer_low_comp_regions returns (the reference's fields)."""
+
+    n: np.ndarray  # the reference's n slot
+    counts: np.ndarray | None
+    regions: np.ndarray  # structured (seq_id, beg, end, score, entropy)
+    w_rank: np.ndarray | None = None
+
+
+def _as_region_array(regions) -> np.ndarray:
+    out = np.zeros(len(regions), dtype=_REGION_DTYPE)
+    for i, (sid, beg, end, score) in enumerate(regions):
+        out[i] = (sid, beg, end, score, 0.0)
+    return out
+
+
+def _as_seq_list(seqs) -> list[PackedSeq]:
+    if isinstance(seqs, (str, bytes, PackedSeq)):
+        seqs = [seqs]
+    return [pack(s) for s in seqs]
 
 
 def kmer_low_comp_regions(

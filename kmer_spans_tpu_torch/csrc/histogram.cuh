@@ -1,9 +1,10 @@
 // Dense int32 histogram through block-private shared-memory bins.
 //
-// Shared by the aug spectrum count (K1, count_aug.cu) and the masked value
-// histogram (K3, histogram.cu): a Decode functor maps each input word to its
-// bin in [0, size), or to -1 when the word counts nowhere.  Only the decode
-// differs between the two.
+// The kernel of the aug spectrum count (K1, count_aug.cu): a Decode functor
+// maps each input word to its bin in [0, size), or to -1 when the word
+// counts nowhere.  The masked value histogram (K3, histogram.cu) has its own
+// kernel, which reads a validity stream beside the values and adds into a
+// cluster's distributed shared memory; it shares the constants below.
 //
 // What bounds it on an H100: one shared-memory atomic per counted word, and
 // the int4 stream of the input (4 bytes a word).  A block cannot hold a

@@ -38,12 +38,14 @@ _SIGNATURES = {
     # aug, n, k, counts, num_sms, stream
     "kst_count_aug": (_P, ctypes.c_int64, ctypes.c_int32, _P,
                       ctypes.c_int32, _P),
-    # aug, nb, block, words, n_words, class_bits, thr_q, out, stream
+    # aug, nb, block, words, n_words, class_bits, thr_q, out, num_sms,
+    # stream
     "kst_screen_scan": (_P, ctypes.c_int64, ctypes.c_int32, _P,
-                        ctypes.c_int32, ctypes.c_int32, _P, _P, _P),
-    # values, n, size, counts, num_sms, stream
-    "kst_histogram": (_P, ctypes.c_int64, ctypes.c_int32, _P,
-                      ctypes.c_int32, _P),
+                        ctypes.c_int32, ctypes.c_int32, _P, _P,
+                        ctypes.c_int32, _P),
+    # values, valid, n, size, cluster, counts, num_sms, stream
+    "kst_histogram": (_P, _P, ctypes.c_int64, ctypes.c_int32,
+                      ctypes.c_int32, _P, ctypes.c_int32, _P),
     # entry, n, words, n_words, thr_q, out, num_sms, stream
     "kst_word_gather": (_P, ctypes.c_int64, _P, ctypes.c_int32, _P, _P,
                         ctypes.c_int32, _P),

@@ -2,14 +2,13 @@
 
 K1 ``count_aug`` is the dense 4^k spectrum from aug words, counterpart of
 ``kmer_spans_tpu/ops/pallas_kernels.py`` pallas_count_aug; its kernel is
-``csrc/count_aug.cu``.  K3 ``histogram`` is the dense histogram of masked
-values, counterpart of pallas_histogram (with ``count_spectrum`` for
-pallas_count_spectrum); its kernel is ``csrc/histogram.cu``.  Both kernels
-are ``csrc/histogram.cuh`` with a different decode, built by ops/_build.py.
-
-K3 keeps the reference's masked-input contract: the wrapper masks in
-torch first, ``where(valid, values, -1)`` (as pallas_kernels.py:101 does
-outside its kernel), and the kernel reads that one int32 stream.
+``csrc/count_aug.cu`` (over ``csrc/histogram.cuh``).  K3 ``histogram`` is
+the dense histogram of ``values[valid]``, counterpart of pallas_histogram
+(with ``count_spectrum`` for pallas_count_spectrum); its kernel is
+``csrc/histogram.cu``, which reads ``values`` and ``valid`` itself: no
+torch pass runs over them first, and nothing is copied.  Above 2^15 bins
+it takes the cluster form (one read of the input) or the sliced form (one
+read per 2^15 bins) by the fixed rule ``cluster_form``.
 
 The plain versions are torch.bincount.  A CPU tensor goes to the plain
 version, a CUDA tensor to the kernel: there is no fallback between them.
@@ -28,6 +27,26 @@ from . import _build
 count_aug_launches = 0
 histogram_launches = 0
 
+#: int32 counters one CTA holds (csrc/histogram.cuh kHistBins)
+SLICE_BINS = 1 << 15
+#: the largest size at which K3 takes its cluster form
+CLUSTER_MAX_BINS = 2 * SLICE_BINS
+
+
+def cluster_form(size: int) -> bool:
+    """Whether K3 takes its cluster form at ``size`` bins.
+
+    Up to SLICE_BINS one CTA holds every counter and the question does not
+    arise (False).  Above it the cluster form reads the input once but
+    sends most adds to another SM's shared memory; the sliced form reads
+    it once per SLICE_BINS counters, mostly from L2.  A fixed rule from
+    the times on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, K3): the
+    cluster form up to two slices (the sort screen's 65536 bins: 0.489
+    against 0.632 ms), the sliced form above (the 4^9 spectrum: 2.531
+    against 3.224 ms).
+    """
+    return SLICE_BINS < size <= CLUSTER_MAX_BINS
+
 
 def _check_aug(aug: torch.Tensor, k: int) -> None:
     if not 4 <= k <= 8:
@@ -36,22 +55,6 @@ def _check_aug(aug: torch.Tensor, k: int) -> None:
         raise TypeError(f"aug must be int32, got {aug.dtype}")
     if not aug.is_contiguous():
         raise ValueError("aug must be contiguous")
-
-
-def _launch(entry: str, x: torch.Tensor, size: int, *args) -> torch.Tensor:
-    """Run one histogram kernel over the int32 stream x into [size] bins."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{entry}: unsupported device {x.device}")
-    counts = torch.zeros(size, dtype=torch.int32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        props = torch.cuda.get_device_properties(x.device)
-        err = getattr(lib, entry)(
-            ctypes.c_void_p(x.data_ptr()), x.numel(), *args,
-            ctypes.c_void_p(counts.data_ptr()), props.multi_processor_count,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, entry)
-    return counts
 
 
 def count_aug_plain(aug: torch.Tensor, k: int) -> torch.Tensor:
@@ -76,15 +79,25 @@ def count_aug(aug: torch.Tensor, k: int) -> torch.Tensor:
     _check_aug(aug, k)
     if aug.device.type == "cpu":
         return count_aug_plain(aug, k)
-    counts = _launch("kst_count_aug", aug, 1 << (2 * k), k)
+    if aug.device.type != "cuda":
+        raise ValueError(f"count_aug: unsupported device {aug.device}")
+    counts = torch.zeros(1 << (2 * k), dtype=torch.int32, device=aug.device)
+    lib = _build.library()
+    with torch.cuda.device(aug.device):
+        props = torch.cuda.get_device_properties(aug.device)
+        err = lib.kst_count_aug(
+            ctypes.c_void_p(aug.data_ptr()), aug.numel(), k,
+            ctypes.c_void_p(counts.data_ptr()), props.multi_processor_count,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "kst_count_aug")
     count_aug_launches += 1
     return counts
 
 
 def _check_values(values: torch.Tensor, valid: torch.Tensor,
                   size: int) -> None:
-    if size < 1:
-        raise ValueError(f"size must be >= 1, got {size}")
+    if not 1 <= size < 1 << 31:
+        raise ValueError(f"size must be in [1, 2^31), got {size}")
     if values.dtype != torch.int32:
         raise TypeError(f"values must be int32, got {values.dtype}")
     if valid.dtype != torch.bool:
@@ -96,6 +109,8 @@ def _check_values(values: torch.Tensor, valid: torch.Tensor,
     if values.device != valid.device:
         raise ValueError(
             f"values are on {values.device}, valid on {valid.device}")
+    if not (values.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("values and valid must be contiguous")
 
 
 def histogram_plain(values: torch.Tensor, valid: torch.Tensor,
@@ -106,23 +121,43 @@ def histogram_plain(values: torch.Tensor, valid: torch.Tensor,
     return torch.bincount(values[keep], minlength=size).to(torch.int32)
 
 
+def histogram_kernel(values: torch.Tensor, valid: torch.Tensor, size: int,
+                     cluster: bool) -> torch.Tensor:
+    """Launch K3 on CUDA tensors in the given form (counted by nobody:
+    ``histogram`` counts its own launches)."""
+    _check_values(values, valid, size)
+    if values.device.type != "cuda":
+        raise ValueError(f"histogram: unsupported device {values.device}")
+    counts = torch.zeros(size, dtype=torch.int32, device=values.device)
+    lib = _build.library()
+    with torch.cuda.device(values.device):
+        props = torch.cuda.get_device_properties(values.device)
+        err = lib.kst_histogram(
+            ctypes.c_void_p(values.data_ptr()),
+            ctypes.c_void_p(valid.data_ptr()), values.numel(), size,
+            int(cluster), ctypes.c_void_p(counts.data_ptr()),
+            props.multi_processor_count,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "kst_histogram")
+    return counts
+
+
 def histogram(values: torch.Tensor, valid: torch.Tensor,
               size: int) -> torch.Tensor:
     """Dense int32 [size] histogram of ``values`` where ``valid``.
 
-    values: int32, any shape; valid: bool, the same shape.  A value counts
-    at its bin when valid and 0 <= value < size, else nowhere; any
-    size >= 1.  Exact int32 counts, equal to the reference's
-    pallas_histogram wherever that one is defined (sizes that are
-    multiples of 128; below 128 it is a scatter that wraps a negative
-    value).
+    values: int32, any shape, contiguous; valid: bool, the same shape,
+    contiguous.  A value counts at its bin when valid and 0 <= value <
+    size, else nowhere; any size in [1, 2^31).  Exact int32 counts, equal
+    to the reference's pallas_histogram wherever that one is defined
+    (sizes that are multiples of 128; below 128 it is a scatter that wraps
+    a negative value).
     """
     global histogram_launches
     _check_values(values, valid, size)
     if values.device.type == "cpu":
         return histogram_plain(values, valid, size)
-    masked = torch.where(valid, values, -1).reshape(-1)
-    counts = _launch("kst_histogram", masked, size, size)
+    counts = histogram_kernel(values, valid, size, cluster_form(size))
     histogram_launches += 1
     return counts
 

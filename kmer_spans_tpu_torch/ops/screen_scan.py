@@ -23,9 +23,10 @@ from .gather import class_scores_int
 #: kernel launches since the count was last set to 0
 launches = 0
 
-#: threads per CTA of the kernel; a block must be a multiple of this
+#: a block must be a multiple of this
 _THREADS = 256
-#: the kernel stages a block's scores in shared memory (4 bytes a position)
+#: the kernel stages a block's aug words in shared memory (4 bytes a
+#: position) beside the class table
 MAX_BLOCK = 32768
 
 
@@ -76,9 +77,9 @@ def fused_screen_scan(words, aug, thr_q, class_bits: int = 4,
     words: int32 packed class table (2^m words; a code indexes it modulo
     its length, a no-op for tables of 4^k / (32 / class_bits) words).
     aug: int32 [n], bit 17 = scored, bits 0..15 = code; n a multiple of
-    block.  thr_q: int32, one value (ops/gather.py screen_thr_q).  Equal
-    to blocked_scan_summaries_int over class_scores_int, element for
-    element.
+    block; on the card it must start on a 16-byte boundary.  thr_q:
+    int32, one value (ops/gather.py screen_thr_q).  Equal to
+    blocked_scan_summaries_int over class_scores_int, element for element.
     """
     global launches
     _check(words, aug, thr_q, class_bits, block)
@@ -86,16 +87,21 @@ def fused_screen_scan(words, aug, thr_q, class_bits: int = 4,
         return fused_screen_scan_plain(words, aug, thr_q, class_bits, block)
     if aug.device.type != "cuda":
         raise ValueError(f"fused_screen_scan: unsupported device {aug.device}")
+    if aug.data_ptr() % 16:
+        raise ValueError("aug must start on a 16-byte boundary (the kernel "
+                         "copies whole blocks by the bulk-copy engine)")
     nb = aug.numel() // block
     out = torch.empty((4, nb), dtype=torch.int32, device=aug.device)
     if nb == 0:
         return out[0], out[1], out[2], out[3]
     lib = _build.library()
     with torch.cuda.device(aug.device):
+        props = torch.cuda.get_device_properties(aug.device)
         err = lib.kst_screen_scan(
             ctypes.c_void_p(aug.data_ptr()), nb, block,
             ctypes.c_void_p(words.data_ptr()), words.numel(), class_bits,
             ctypes.c_void_p(thr_q.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            props.multi_processor_count,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "fused_screen_scan")
     launches += 1

@@ -1,12 +1,233 @@
-"""The sequential reference the port is held against.
+"""The sequential reference the port is held against: the port's own copy.
 
-Re-exports the reference's jax-free host oracle (its exact f64 rank chain
-and region recurrence, bit-identical to the C reference) and its golden
-genome, so that callers of the port reach them through this package.
+Copied from ``kmer_spans_tpu/oracle/reference.py`` (spectrum count,
+weighted ranks, span caller) and ``kmer_spans_tpu/utils/testgen.py`` (the
+golden genome), so that the port and chip_smoke.py import nothing of the
+JAX package.  Straightforward sequential numpy/python code with the
+reference's exact f64 rank chain and region recurrence, bit-identical to
+the C reference (src/kmer_spans.c:135-155, :189-202, :243-307).
+
+Coordinates: a region's (beg, end) are the 1-based positions of the last
+base of its first positive-scoring and its first maximum-scoring k-mer.
 """
 
-from kmer_spans_tpu.oracle import count_spectrum, find_regions, weighted_ranks
-from kmer_spans_tpu.utils.testgen import golden_genome
+from __future__ import annotations
+
+import numpy as np
+
+from .encoding import MAX_K, pack
 
 __all__ = ["count_spectrum", "find_regions", "golden_genome",
            "weighted_ranks"]
+
+
+def segments(valid: np.ndarray) -> list[tuple[int, int]]:
+    """Maximal runs [a, b] (inclusive, 0-based) of valid (non-N) bases."""
+    n = valid.shape[0]
+    if n == 0:
+        return []
+    v = valid.astype(np.int8)
+    d = np.diff(v)
+    starts = list(np.nonzero(d == 1)[0] + 1)
+    ends = list(np.nonzero(d == -1)[0])
+    if v[0]:
+        starts.insert(0, 0)
+    if v[-1]:
+        ends.append(n - 1)
+    return list(zip(starts, ends))
+
+
+def count_spectrum(seq, k: int, counts: np.ndarray | None = None):
+    """Count all k-mers of one sequence into a dense 4^k spectrum.
+
+    Every complete k-mer inside each N-free segment is counted (n-k+1 per
+    segment of length n >= k).  Returns (counts, n_words).  ``counts`` may be
+    passed in to accumulate across sequences.
+    """
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}]")
+    p = pack(seq)
+    size = 1 << (2 * k)
+    if counts is None:
+        counts = np.zeros(size, dtype=np.int64)
+    n_words = 0
+    # one bincount per sequence over all its segments' codes (addition is
+    # commutative over segments, so this is outcome-identical)
+    parts = []
+    for a, b in segments(p.valid):
+        seg_len = b - a + 1
+        if seg_len < k:
+            continue
+        codes = _segment_codes(p.bases, a, b, k)
+        parts.append(codes)
+        n_words += codes.shape[0]
+    if parts:
+        allc = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        counts += np.bincount(allc, minlength=size).astype(counts.dtype)
+    return counts, n_words
+
+
+def _segment_codes(bases: np.ndarray, a: int, b: int, k: int) -> np.ndarray:
+    """Codes of all k-mers in segment [a, b], ordered by end position."""
+    seg = bases[a : b + 1].astype(np.int64)
+    n = seg.shape[0]
+    codes = np.zeros(n - k + 1, dtype=np.int64)
+    for j in range(k):
+        codes = codes | (seg[j : j + n - k + 1] << (2 * (k - 1 - j)))
+    return codes
+
+
+def weighted_ranks(counts: np.ndarray, total: float) -> np.ndarray:
+    """rank[kmer] = fraction of counted k-mer mass strictly before it when the
+    spectrum is sorted by (count asc, kmer index asc).
+
+    Tied counts get different ranks, ordered by k-mer index (the
+    reference's stable sort).  Accumulation is the sequential chain
+    ``r += counts[prev]/total`` in f64, which np.cumsum reproduces exactly
+    (left-to-right accumulation).
+    """
+    counts = np.asarray(counts)
+    if total == 0:
+        # no k-mers counted: every rank is 0 (the degenerate case defined
+        # instead of propagating NaNs)
+        return np.zeros(counts.shape[0], dtype=np.float64)
+    order = np.argsort(counts, kind="stable")
+    terms = counts[order[:-1]].astype(np.float64) / np.float64(total)
+    ranks_sorted = np.empty(counts.shape[0], dtype=np.float64)
+    ranks_sorted[0] = 0.0
+    np.cumsum(terms, out=ranks_sorted[1:])
+    ranks = np.empty_like(ranks_sorted)
+    ranks[order] = ranks_sorted
+    return ranks
+
+
+def find_regions(
+    seq,
+    seq_id: int,
+    min_width: int,
+    min_score: float,
+    weights: np.ndarray,
+    k: int,
+    threshold: float = 0.0,
+    scan_counts: np.ndarray | None = None,
+):
+    """Sequential span caller: S_i = max(S_{i-1} + (weights[code_i] - threshold), 0).
+
+      * scoring positions are k-mer END positions; within an N-free segment
+        [a, b], k-mers end at a+k-1 .. b but only a+k-1 .. b-1 are scored
+        (the final k-mer of each segment is formed but never scored);
+      * a region candidate runs from the first positive-scoring position to
+        the FIRST position attaining the running maximum (strict '>' update);
+      * when S returns to 0 (or the segment ends with S > 0): emit if
+        (max_pos - beg >= min_width) and (max_score >= min_score); after an
+        emit, scoring restarts at position max_pos + 1 with S = 0 (the
+        reference's jump-back rescan); a failing candidate emits nothing;
+      * if scan_counts is given, every scored position increments
+        scan_counts[code]; rescanned positions count again.
+
+    Returns a list of (seq_id, beg, end, score).
+    """
+    p = pack(seq)
+    mask = (1 << (2 * k)) - 1
+    regions: list[tuple[int, int, int, float]] = []
+    # a sparse lookup object (SparseRanks-like) stays as it is
+    if not getattr(weights, "sparse_lookup", False):
+        weights = np.asarray(weights, dtype=np.float64)
+
+    for a, b in segments(p.valid):
+        if b - a + 1 < k:
+            continue
+        codes = _segment_codes(p.bases, a, b, k)  # codes[j] ends at a+k-1+j
+        # scored end positions: a+k-1 .. b-1  -> codes[0 .. len-2]
+        end0 = a + k - 1  # 0-based end position of first k-mer
+        n_scored = codes.shape[0] - 1
+        if n_scored <= 0:
+            continue
+        start = 0  # index into codes of next position to score
+        while start < n_scored:
+            emitted_jump = _scan_segment_once(
+                codes, start, n_scored, end0, seq_id, min_width, min_score,
+                weights, mask, threshold, regions, scan_counts,
+            )
+            if emitted_jump is None:
+                break
+            start = emitted_jump
+    return regions
+
+
+def _scan_segment_once(
+    codes, start, n_scored, end0, seq_id, min_width, min_score,
+    weights, mask, threshold, regions, scan_counts,
+):
+    """One pass from ``start``; returns restart index after an emit, else None.
+
+    Mirrors the reference inner loop: score, clamp, track first-argmax,
+    emit-and-jump on zero-crossing or at scan end.
+    """
+    score = 0.0
+    last_score = 0.0
+    max_score = 0.0
+    reg_beg = 0
+    max_pos = 0
+    j = start
+    while j < n_scored:
+        code = int(codes[j]) & mask
+        if scan_counts is not None:
+            scan_counts[code] += 1
+        s = weights[code] - threshold
+        score = last_score + s
+        if score < 0.0:
+            score = 0.0
+        pos1 = end0 + j + 1  # 1-based last-base position of this k-mer
+        if last_score == 0.0 and score > 0.0:
+            reg_beg = pos1
+            max_pos = pos1
+            max_score = score
+        if score == 0.0 and last_score > 0.0:
+            if max_pos - reg_beg >= min_width and max_score >= min_score:
+                regions.append((seq_id, reg_beg, max_pos, max_score))
+                # jump-back: resume scoring at position max_pos + 1
+                return (max_pos + 1) - (end0 + 1)
+            max_score = 0.0
+            max_pos = pos1
+        if score > max_score:
+            max_score = score
+            max_pos = pos1
+        last_score = score
+        j += 1
+    # terminal (segment end) emission
+    if score > 0.0:
+        if max_pos - reg_beg >= min_width and max_score >= min_score:
+            regions.append((seq_id, reg_beg, max_pos, max_score))
+            return (max_pos + 1) - (end0 + 1)
+    return None
+
+
+_LCG_MUL = np.uint64(6364136223846793005)
+_LCG_ADD = np.uint64(1442695040888963407)
+
+
+def lcg_bases(n: int, seed: int = 42) -> str:
+    """n pseudo-random bases from the PCG-style LCG of the golden genome."""
+    state = np.uint64(seed)
+    out = np.empty(n, dtype=np.uint8)
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with np.errstate(over="ignore"):
+        for i in range(n):
+            state = state * _LCG_MUL + _LCG_ADD
+            out[i] = letters[int((state >> np.uint64(33)) & np.uint64(3))]
+    return out.tobytes().decode("ascii")
+
+
+def golden_genome(n: int = 100_000, seed: int = 42) -> str:
+    """The golden genome (SURVEY.md Appendix B): LCG bases + three planted
+    repeat islands."""
+    seq = list(lcg_bases(n, seed))
+    islands = [
+        (20000, "AG" * 300),   # [20000, 20600)
+        (50000, "CAG" * 300),  # [50000, 50900)
+        (80000, "T" * 400),    # [80000, 80400)
+    ]
+    for start, rep in islands:
+        seq[start : start + len(rep)] = rep
+    return "".join(seq)

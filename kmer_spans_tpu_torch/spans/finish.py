@@ -20,6 +20,9 @@ import numpy as np
 
 from ..ops.blocked import SCREEN_NEG
 from ..ops.gather import SCREEN_SCALE
+from ..stats.ranks import chain_ranks_from_mass
+from ..utils import native
+from .extract import extract_spans
 
 #: host int64 "-inf" for composed B-parts
 _NEG64 = -(1 << 62)
@@ -62,10 +65,8 @@ def host_rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
     mx = int(counts.max()) if n else 0
     if n >= (1 << 20) and mx < (1 << 31):
         # sort-free native chain (value histogram + per-value cursors) —
-        # bit-identical (tests/test_native.py), ~14x the numpy argsort
-        # path at 4^12
-        from kmer_spans_tpu.utils import native
-
+        # bit-identical (tests/test_torch_isolation.py), ~14x the numpy
+        # argsort path at 4^12
         nr = native.rank_chain(counts, total)
         if nr is not None:
             return nr
@@ -278,8 +279,6 @@ def finish_spans(
             "finish_spans needs exact counts: pipeline ran with "
             "packed_counts=False — pass counts= (host recount)")
     # bit-identical replay scores: gather the reference's f64 rank CHAIN
-    from kmer_spans_tpu.utils import native
-
     size = len(counts)
     k = (size.bit_length() - 1) // 2  # len(counts) == 4^k
     ranks = None
@@ -289,7 +288,7 @@ def finish_spans(
         # sort-free native chain is miss-bound filling it (3.6 s at
         # 4^13) — instead compute exact chain ranks for just the
         # candidate codes (native mass pass + native streaming fold;
-        # bit-identical, tests/test_native.py)
+        # bit-identical, tests/test_torch_isolation.py)
         if codes is None:
             rows_all = sorted(
                 {pos_in_pull[b] for b in np.nonzero(cand)[0]})
@@ -298,8 +297,6 @@ def finish_spans(
             codes[rows_all] = cw_all
         uniq = np.unique(np.asarray(codes)[scored])
         pm, vv, vn = native.mass_of_codes(counts, uniq)
-        from kmer_spans_tpu.stats.ranks import chain_ranks_from_mass
-
         ranks_u = chain_ranks_from_mass(pm, (vv, vn), total)
 
         def rank_lookup(c_flat):
@@ -363,8 +360,6 @@ def finish_spans(
 
 def _replay_stretch(s, scored, base_pos, min_width, min_score, seq_id):
     """Exact f64 replay over one assembled stretch (as spans/extract.py)."""
-    from kmer_spans_tpu.spans.extract import extract_spans
-
     regs = extract_spans(s, scored, min_width, min_score, seq_id=seq_id)
     # shift from stretch-local 1-based coords to sequence coords
     return [(sid, beg + base_pos, end + base_pos, sc) for sid, beg, end, sc in regs]

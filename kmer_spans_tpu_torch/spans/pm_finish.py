@@ -17,10 +17,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from kmer_spans_tpu.stats.ranks import chain_ranks_from_mass
-from kmer_spans_tpu.utils import native
-
 from ..ops.gather import SCREEN_SCALE
+from ..stats.ranks import chain_ranks_from_mass
+from ..utils import native
 from .finish import (
     SpanPipelineResult,
     _replay_stretch,

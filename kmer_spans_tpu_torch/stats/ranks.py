@@ -1,0 +1,107 @@
+"""Reference-exact f64 chain ranks from integer rank mass (host).
+
+The port's own copy of ``chain_ranks_from_mass`` from
+``kmer_spans_tpu/stats/ranks.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..utils import native
+
+
+def chain_ranks_from_mass(
+    pm: np.ndarray, value_hist: np.ndarray, total: int,
+    chunk: int = 1 << 26,
+) -> np.ndarray:
+    """Reference-exact f64 chain ranks for k-mers given their integer mass,
+    WITHOUT the 4^k table.
+
+    pm: int64 cumulative-mass values of the queried k-mers.  value_hist:
+    int64 MASS histogram over count values (value_hist[v] = v * #codes
+    with count v).  total: total counted k-mers.
+
+    Why this is exact: the reference's rank chain
+    (src/kmer_spans.c:198-200) left-folds counts[sorted]/total in f64.
+    Zero terms are exact no-ops (fl(S + 0.0) == S for S >= 0), and equal
+    counts contribute bit-identical terms, so the fold sequence is fully
+    determined by the multiset of count values, the value histogram.
+    A queried k-mer's fold position follows from its mass: the group g
+    with below[g] <= pm < below[g+1] gives its count v = v_vals[g] and
+    within-group index r = (pm - below[g]) / v (mass grows by exactly v
+    per equal-count k-mer), so rank = fold of (nnz_before[g] + r) terms.
+
+    Memory is O(#nonzero-count codes) per chunk (the fold is streamed),
+    never O(4^k).
+
+    value_hist may also be a SPARSE (v_vals, n_codes) tuple: distinct
+    count values ascending plus their code multiplicities (the native
+    ks_mass_of_codes output).
+    """
+    pm = np.asarray(pm, dtype=np.int64)
+    if isinstance(value_hist, tuple):
+        v_vals = np.asarray(value_hist[0], dtype=np.int64)
+        h = np.asarray(value_hist[1], dtype=np.int64)
+        keep = v_vals > 0
+        v_vals, h = v_vals[keep], h[keep]
+        gmass = v_vals * h
+    else:
+        value_hist = np.asarray(value_hist, dtype=np.int64)
+        v_vals = np.nonzero(value_hist[1:])[0] + 1  # values present, asc
+        gmass = value_hist[v_vals]
+        h = gmass // v_vals  # codes per group
+        if (h * v_vals != gmass).any():
+            raise ValueError("value_hist is not a mass histogram")
+    if int(h.sum()) >= (1 << 22):
+        # the C streaming fold (one pass; the chunked numpy fold below is
+        # seconds at 100M terms), bit-identical
+        out = native.chain_from_hist(
+            v_vals, h, float(total), pm.reshape(-1))
+        if out is not None:
+            return out.reshape(pm.shape)
+    below = np.concatenate([[0], np.cumsum(gmass)[:-1]])  # mass before group
+    nnz_before = np.concatenate([[0], np.cumsum(h)[:-1]])
+    g = np.searchsorted(below, pm, side="right") - 1
+    if v_vals.size == 0:
+        return np.zeros(pm.shape, np.float64)
+    v = v_vals[g]
+    r, rem = np.divmod(pm - below[g], v)
+    if rem.any():
+        raise ValueError("pm is not a cumulative_mass value")
+    p = nnz_before[g] + r  # fold length for each query
+    # stream the fold in chunks; record requested prefixes
+    out = np.empty(pm.shape, np.float64)
+    order = np.argsort(p.reshape(-1), kind="stable")
+    ps = p.reshape(-1)[order]
+    nnz_total = int(nnz_before[-1] + h[-1])
+    qi = 0
+    # answer p == 0 queries (all-zero prefix)
+    while qi < ps.size and ps[qi] == 0:
+        out.reshape(-1)[order[qi]] = 0.0
+        qi += 1
+    carry = 0.0
+    done = 0  # terms folded so far
+    gi = 0    # current group
+    used = 0  # terms of current group consumed
+    inv_terms = v_vals.astype(np.float64) / np.float64(total)
+    while done < nnz_total and qi < ps.size:
+        m = min(chunk, nnz_total - done)
+        seg = np.empty(m, np.float64)
+        fill = 0
+        while fill < m:
+            take = min(int(h[gi]) - used, m - fill)
+            seg[fill:fill + take] = inv_terms[gi]
+            fill += take
+            used += take
+            if used == h[gi]:
+                gi += 1
+                used = 0
+        seg[0] = carry + seg[0]  # seed: fl(carry + t) == accumulate step
+        acc = np.add.accumulate(seg)
+        while qi < ps.size and ps[qi] <= done + m:
+            out.reshape(-1)[order[qi]] = acc[ps[qi] - done - 1]
+            qi += 1
+        carry = acc[-1]
+        done += m
+    return out

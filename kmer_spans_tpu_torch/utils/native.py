@@ -1,0 +1,293 @@
+"""ctypes binding for the port's host library (csrc/host/kmerspans_host.cpp).
+
+The library is built at first use with the system C++ compiler ($CXX, else
+``c++`` or ``g++`` on PATH) into ``kmer_spans_tpu_torch/build/``, under a
+name made from a hash of the source and flags.  The compiler writes a
+per-process temporary file that ``os.replace`` moves into place, so
+concurrent processes never load a half-written library.  A failed build is
+not remembered: the next call tries again.  Where there is no compiler,
+``available()`` is False and every entry point returns None (or, for
+``host_spectrum``, takes its numpy path), so the callers' numpy paths run.
+
+Copied from ``kmer_spans_tpu/utils/native.py`` for the entry points the
+port calls: same arguments, same results.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "host" / "kmerspans_host.cpp"
+BUILD_DIR = _PKG / "build"
+#: no -march=native: the built file must load on any x86-64 host the tree
+#: is copied to; no fast-math, so the f64 folds stay IEEE
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared",
+            "-ffp-contract=off", "-Wall", "-Wextra")
+
+_P, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                        ctypes.c_double)
+_SIGNATURES = {
+    "ks_count": (_P, _I64, _I32, _P),
+    "ks_count_mt": (_P, _I64, _I32, _P, _I32),
+    "ks_count_radix": (_P, _I64, _I32, _P, _I32),
+    "ks_rank_chain": (_P, _I64, _F64, _P),
+    "ks_chain_from_hist": (_P, _P, _I64, _F64, _P, _I64, _P),
+    "ks_mass_of_codes": (_P, _I64, _P, _I64, _P, _P, _P, _I64),
+    "ks_replay_packed": (_P, _P, _I64, _I64, _I32, _P, _F64, _I64, _F64,
+                         _I64, _P, _P, _P, _I64),
+    "ks_replay_scores": (_P, _P, _I64, _I64, _F64, _I64, _P, _P, _P, _I64),
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def library_path() -> Path:
+    """Where the library for the current source and flags lives."""
+    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libkst_host_{h.hexdigest()[:16]}.so"
+
+
+def _compiler() -> str | None:
+    return (os.environ.get("CXX") or shutil.which("c++")
+            or shutil.which("g++"))
+
+
+def build() -> Path:
+    """Compile the library unless it is already there; return its path.
+
+    Raises RuntimeError when there is no compiler or the compiler fails.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    cxx = _compiler()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler ($CXX, c++ or g++)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
+                        ".tmp")
+    try:
+        res = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cxx} failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never loads half
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except (OSError, RuntimeError, subprocess.SubprocessError):
+                return None  # the numpy paths; the next call tries again
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int64
+            _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def count_spectrum(nbases: np.ndarray, k: int) -> tuple[np.ndarray, int] | None:
+    """Native sequential spectrum count; None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
+    counts = np.zeros(1 << (2 * k), dtype=np.int32)
+    n = lib.ks_count(nbases.ctypes.data, nbases.shape[0], k, counts.ctypes.data)
+    return counts.astype(np.int64), int(n)
+
+
+def host_spectrum(
+    nbases: np.ndarray, k: int, threads: int = 0,
+) -> tuple[np.ndarray, int]:
+    """Host spectrum from nbases (N == 4): native C when available,
+    vectorized numpy otherwise.  The k >= 10 span pipelines replay
+    candidates from this recount instead of pulling 4^k device words
+    (spans/pipeline.py packed_counts=False).
+
+    threads=0 picks min(os.cpu_count(), 4); >1 uses the code-space-
+    partitioned multithreaded native counter (shared table, disjoint
+    writes).  Returns (counts, n_words); counts int32 for k >= 13 (the
+    4^k table is 4 GB at k=15; int64 would double it), int64 below.
+    """
+    lib = _load()
+    if lib is not None:
+        if threads == 0:
+            threads = min(os.cpu_count() or 1, 4)
+        nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
+        counts = np.zeros(1 << (2 * k), dtype=np.int32)
+        if 10 <= k <= 14 and nbases.shape[0] >= (1 << (2 * k - 3)):
+            # cache-staged radix counter: per-bucket write-combining into
+            # cache-resident table slices (atomic adds).  Not for k = 15,
+            # where each count touches a unique line, and only when the
+            # genome is big enough for slices to get several hits
+            # (n >= 4^k / 8)
+            n = lib.ks_count_radix(nbases.ctypes.data, nbases.shape[0],
+                                   k, counts.ctypes.data, threads)
+        else:
+            n = lib.ks_count_mt(nbases.ctypes.data, nbases.shape[0], k,
+                                counts.ctypes.data, threads)
+        if k < 13:
+            counts = counts.astype(np.int64)
+        # k >= 13 stays int32: the table is 0.25-4 GB, and every native
+        # consumer (rank_chain, mass_of_codes, replay) takes int32
+        return counts, int(n)
+    from ..encoding import PackedSeq, kmer_codes_np
+
+    nbases = np.asarray(nbases, dtype=np.uint8)
+    p = PackedSeq(bases=nbases & 3, valid=nbases < 4)
+    codes, kv = kmer_codes_np(p, k)
+    counts = np.bincount(
+        codes[kv], minlength=1 << (2 * k)).astype(np.int64)
+    return counts, int(kv.sum())
+
+
+def chain_from_hist(v_vals, n_codes, total, pm) -> np.ndarray | None:
+    """Exact f64 chain ranks for mass values pm given the sparse value
+    histogram: the C form of stats/ranks.py chain_ranks_from_mass (one
+    streaming fold).  None if native is unavailable; raises on an invalid
+    pm."""
+    lib = _load()
+    if lib is None:
+        return None
+    v_vals = np.ascontiguousarray(v_vals, dtype=np.int64)
+    n_codes = np.ascontiguousarray(n_codes, dtype=np.int64)
+    pm = np.ascontiguousarray(pm, dtype=np.int64)
+    out = np.empty(pm.shape[0], dtype=np.float64)
+    rc = lib.ks_chain_from_hist(
+        v_vals.ctypes.data, n_codes.ctypes.data, v_vals.shape[0],
+        float(total), pm.ctypes.data, pm.shape[0], out.ctypes.data)
+    if rc != 0:
+        raise ValueError("pm is not a cumulative_mass value")
+    return out
+
+
+def rank_chain(counts: np.ndarray, total: int) -> np.ndarray | None:
+    """The reference's exact f64 rank chain over a dense spectrum via the
+    sort-free native kernel (value histogram + per-value cursors).  Counts
+    must fit int32.  None if the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    ranks = np.empty(counts.shape[0], dtype=np.float64)
+    lib.ks_rank_chain(counts.ctypes.data, counts.shape[0], float(total),
+                      ranks.ctypes.data)
+    return ranks
+
+
+def replay_scores(
+    s: np.ndarray, scored: np.ndarray, min_width: int, min_score: float,
+    base_pos: int,
+):
+    """Reference-exact replay from precomputed per-position f64 scores
+    (the k >= 13 candidate-only rank path); None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(s, dtype=np.float64)
+    scored = np.ascontiguousarray(scored, dtype=np.uint8)
+    cap = 256
+    while True:
+        beg = np.empty(cap, dtype=np.int64)
+        end = np.empty(cap, dtype=np.int64)
+        score = np.empty(cap, dtype=np.float64)
+        nreg = lib.ks_replay_scores(
+            s.ctypes.data, scored.ctypes.data, s.shape[0],
+            min_width, min_score, base_pos,
+            beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap)
+        if nreg <= cap:
+            return beg[:nreg], end[:nreg], score[:nreg]
+        cap = int(nreg) + 16
+
+
+def mass_of_codes(counts: np.ndarray, qcodes: np.ndarray):
+    """Exact integer mass + sparse value histogram for sorted unique
+    query codes (the k >= 13 replay path: no 4^k f64 rank table).
+
+    Returns (pm int64 [nq], v_vals int64 asc, v_ncodes int64) or None if
+    native is unavailable.  counts must be int32-compatible.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    q = np.ascontiguousarray(qcodes, dtype=np.int64)
+    pm = np.empty(q.shape[0], dtype=np.int64)
+    cap = 1 << 16
+    while True:
+        vv = np.empty(cap, dtype=np.int64)
+        vn = np.empty(cap, dtype=np.int64)
+        nvals = lib.ks_mass_of_codes(
+            counts.ctypes.data, counts.shape[0], q.ctypes.data,
+            q.shape[0], pm.ctypes.data, vv.ctypes.data, vn.ctypes.data,
+            cap)
+        if nvals <= cap:
+            return pm, vv[:nvals], vn[:nvals]
+        cap = int(nvals) + 16
+
+
+def replay_packed(
+    cand_words: np.ndarray,
+    scored: np.ndarray,
+    block: int,
+    k: int,
+    ranks: np.ndarray,
+    threshold: float,
+    min_width: int,
+    min_score: float,
+    base_pos: int,
+):
+    """Reference-exact candidate-stretch replay from the device's packed
+    2-bit-bases payload (spans/pipeline.py packed_bases format); None if
+    the native library is unavailable.
+
+    cand_words: [rows, 1 + block/16] uint32 (seed code + base words) for
+    CONSECUTIVE candidate blocks; scored: [rows, block] bool; base_pos:
+    global 0-based position of the stretch's first element.
+    Returns (beg, end, score) arrays in global 1-based last-base coords.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    cand_words = np.ascontiguousarray(cand_words, dtype=np.uint32)
+    scored = np.ascontiguousarray(scored, dtype=np.uint8)
+    rows = cand_words.shape[0]
+    ranks = np.ascontiguousarray(ranks, dtype=np.float64)
+    cap = 256
+    while True:
+        beg = np.empty(cap, dtype=np.int64)
+        end = np.empty(cap, dtype=np.int64)
+        score = np.empty(cap, dtype=np.float64)
+        nreg = lib.ks_replay_packed(
+            cand_words.ctypes.data, scored.ctypes.data,
+            rows, block, k, ranks.ctypes.data, threshold,
+            min_width, min_score, base_pos,
+            beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap,
+        )
+        if nreg <= cap:
+            return beg[:nreg], end[:nreg], score[:nreg]
+        cap = int(nreg) + 16

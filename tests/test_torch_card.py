@@ -62,26 +62,52 @@ def test_count_aug_kernel_matches_plain(card, k):
     assert histogram.count_aug_launches == before + 2
 
 
-@pytest.mark.parametrize("block", [1024, 8192])
+@pytest.mark.parametrize("block", [256, 768, 1024, 3072, 8192, 16384, 32768])
 @pytest.mark.parametrize("class_bits", [2, 4])
 @pytest.mark.parametrize("k", [4, 8])
 def test_screen_scan_kernel_matches_plain(card, k, class_bits, block):
     rng = np.random.default_rng(k + class_bits + block)
-    nw = (1 << (2 * k)) // (32 // class_bits)
+    nw = (1 << (2 * k)) // (32 // class_bits)  # 2^13 words at k = 8, 4-bit
     words = rng.integers(-(2 ** 31), 2 ** 31, nw, dtype=np.int64).astype(
         np.int32)
-    aug = _aug_words(rng, 6 * block, k)
-    aug[block:2 * block] &= ~(1 << 17)  # no scored position
-    args = (to_tensor(words, card), to_tensor(aug, card),
-            torch.tensor(3071, dtype=torch.int32, device=card), class_bits,
-            block)
-    before = screen_scan.launches
-    got = fused_screen_scan(*args)
-    torch.cuda.synchronize()
-    assert screen_scan.launches == before + 1
-    for g, w in zip(got, fused_screen_scan_plain(*args)):
-        assert torch.equal(g, w)
-    assert got[1][1].item() <= -(1 << 29)  # the no-scored sentinel
+    # many blocks a persistent CTA; and fewer blocks than CTAs
+    for nblocks in (max(6, (1 << 21) // block), 3):
+        aug = _aug_words(rng, nblocks * block, k)
+        aug[block:2 * block] &= ~(1 << 17)  # no scored position
+        args = (to_tensor(words, card), to_tensor(aug, card),
+                torch.tensor(3071, dtype=torch.int32, device=card),
+                class_bits, block)
+        before = screen_scan.launches
+        got = fused_screen_scan(*args)
+        torch.cuda.synchronize()
+        assert screen_scan.launches == before + 1
+        for g, w in zip(got, fused_screen_scan_plain(*args)):
+            assert torch.equal(g, w)
+        assert got[1][1].item() <= -(1 << 29)  # the no-scored sentinel
+
+
+@pytest.mark.parametrize("n_words", [1, 32, 1 << 14])
+def test_screen_scan_kernel_any_table(card, n_words):
+    """Tables smaller and larger than the words a 16-bit code reaches."""
+    rng = np.random.default_rng(n_words)
+    words = rng.integers(-(2 ** 31), 2 ** 31, n_words,
+                         dtype=np.int64).astype(np.int32)
+    aug = _aug_words(rng, 64 * 8192, 8)
+    for class_bits in (2, 4):
+        args = (to_tensor(words, card), to_tensor(aug, card),
+                torch.tensor(2866, dtype=torch.int32, device=card),
+                class_bits, 8192)
+        for g, w in zip(fused_screen_scan(*args),
+                        fused_screen_scan_plain(*args)):
+            assert torch.equal(g, w)
+
+
+def test_screen_scan_refuses_misaligned_aug(card):
+    words = torch.zeros(8192, dtype=torch.int32, device=card)
+    aug = torch.zeros(4 * 1024 + 1, dtype=torch.int32, device=card)
+    thr_q = torch.tensor(3000, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        fused_screen_scan(words, aug[1:], thr_q, 4, 1024)
 
 
 def test_wrappers_raise_on_mixed_devices(card):
@@ -139,7 +165,9 @@ def test_api_overflow_reruns_on_card(card, monkeypatch):
     assert np.array_equal(got.regions, want.regions)
 
 
-@pytest.mark.parametrize("size", [100, 256, 4096, 65536, 1 << 19])
+@pytest.mark.parametrize("size", [1, 100, 256, 4096, 1 << 15, (1 << 15) + 1,
+                                  65536, 1 << 18, (1 << 18) + 1, 1 << 19,
+                                  1 << 20])
 def test_histogram_kernel_matches_plain(card, size):
     rng = np.random.default_rng(size)
     n = (1 << 20) + 3
@@ -149,12 +177,28 @@ def test_histogram_kernel_matches_plain(card, size):
     valid[5000:5000 + (1 << 17)] = True
     x, m = to_tensor(values, card), to_tensor(valid, card)
     before = histogram.histogram_launches
-    for args in ((x, m), (x[1:], m[1:])):  # aligned and unaligned starts
+    # aligned; offset views aligned alike; offset views aligned unlike
+    for args in ((x, m), (x[1:], m[1:]), (x[1:-1], m[2:]), (x[3:], m[:-3])):
         got = histogram.histogram(*args, size)
         torch.cuda.synchronize()
         assert torch.equal(got, histogram_plain(*args, size))
+        for cluster in (True, False):  # both forms, whatever the rule
+            assert torch.equal(histogram.histogram_kernel(*args, size,
+                                                          cluster),
+                               histogram_plain(*args, size))
     assert not histogram.histogram(x, torch.zeros_like(m), size).any()
-    assert histogram.histogram_launches == before + 3
+    assert histogram.histogram_launches == before + 5
+
+
+def test_histogram_refuses_what_the_kernel_does_not_take(card):
+    x = torch.zeros(64, dtype=torch.int32, device=card)
+    m = torch.ones(64, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):  # not contiguous
+        histogram.histogram(x[::2], m[::2], 10)
+    with pytest.raises(ValueError):  # mixed devices
+        histogram.histogram(x, m.cpu(), 10)
+    with pytest.raises(TypeError):
+        histogram.histogram(x, m.to(torch.uint8), 10)
 
 
 @pytest.mark.parametrize("k", [12, 13, 15])

@@ -3,15 +3,16 @@
 kmer_spans_tpu_torch/spans/finish.py copies the host code of
 kmer_spans_tpu/spans/pipeline.py (which cannot be imported without JAX).
 Every copy gets the same inputs as its original and must give the same
-result, on the numpy path and on the native C++ path.
+result, on the numpy path and on the native C++ path (the port's own host
+library, kmer_spans_tpu_torch/utils/native.py).
 """
 
 import numpy as np
 import pytest
 
 from kmer_spans_tpu.spans import pipeline as ref
-from kmer_spans_tpu.utils import native
 from kmer_spans_tpu_torch.spans import finish
+from kmer_spans_tpu_torch.utils import native
 from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
 
 from conftest import random_seq

@@ -1,0 +1,379 @@
+"""The port stands alone: it imports nothing of the JAX package.
+
+kmer_spans_tpu_torch keeps its own copies of the host code it needs
+(encoding, oracle, stats.ranks, spans.extract and the host C++ library
+behind utils.native).  This file holds that no module of the port, nor
+chip_smoke.py, imports jax or kmer_spans_tpu, and that every copy gives
+what its original gives on the same seeded inputs.  The host library is
+held against the reference's numpy paths (the oracle, ``kmer_codes_np``,
+``cumulative_mass``, ``extract_spans``), to which the reference holds its
+own binding (tests/test_native.py); no test here imports that binding.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from kmer_spans_tpu import api as ref_api
+from kmer_spans_tpu import encoding as ref_encoding
+from kmer_spans_tpu import oracle as ref_oracle
+from kmer_spans_tpu.spans import extract as ref_extract
+from kmer_spans_tpu.stats import ranks as ref_ranks
+from kmer_spans_tpu.utils import testgen as ref_testgen
+from kmer_spans_tpu_torch import api, encoding, oracle
+from kmer_spans_tpu_torch.spans import extract
+from kmer_spans_tpu_torch.stats import ranks
+from kmer_spans_tpu_torch.utils import native
+
+from conftest import random_seq
+
+_ROOT = Path(__file__).resolve().parent.parent
+_PORT = _ROOT / "kmer_spans_tpu_torch"
+
+
+def _run(code: str, *args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code), *args],
+                          cwd=_ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+# ------------------------------------------------------------ isolation
+
+def test_importing_the_port_and_chip_smoke_loads_no_jax_package():
+    res = _run("""
+        import importlib, pkgutil, sys
+        import kmer_spans_tpu_torch as p
+        mods = [m.name for m in pkgutil.walk_packages(
+            p.__path__, "kmer_spans_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
+        assert not bad, bad
+        print(len(mods))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout) >= 20  # every module of the port was imported
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_PORT.rglob("*.py")) + [_ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(_ROOT)))
+def test_no_source_imports_the_jax_package(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "kmer_spans_tpu"}
+
+
+# ------------------------------------------------------------ the copies
+
+@pytest.fixture(scope="module")
+def genomes(golden):
+    rng = np.random.default_rng(77)
+    s = list(random_seq(rng, 40_000, n_prob=0.003))
+    s[9000:9700] = "TC" * 350
+    s[25000:25450] = "A" * 450
+    return {"golden": golden, "random": "".join(s)}
+
+
+def test_golden_genome_is_the_reference_string(golden):
+    assert oracle.golden_genome() == ref_testgen.golden_genome() == golden
+    assert oracle.golden_genome(3000, 7) == ref_testgen.golden_genome(3000, 7)
+
+
+def test_pack_and_codes_equal_the_reference():
+    raw = "ACGTNnacgtWSUryk" * 40 + "N" * 7 + "GATTACA" * 30
+    got, want = encoding.pack(raw), ref_encoding.pack(raw)
+    assert np.array_equal(got.bases, want.bases)
+    assert np.array_equal(got.valid, want.valid)
+    assert got.n == want.n == len(raw)
+    for k in (1, 5, 15):
+        for g, w in zip(encoding.kmer_codes_np(got, k),
+                        ref_encoding.kmer_codes_np(want, k)):
+            assert np.array_equal(g, w)
+    assert encoding.MAX_K == ref_encoding.MAX_K
+
+
+@pytest.mark.parametrize("k", [2, 8, 12])
+@pytest.mark.parametrize("which", ["golden", "random"])
+def test_oracle_equals_the_reference(genomes, which, k):
+    seq = genomes[which]
+    counts, n = oracle.count_spectrum(seq, k)
+    want_counts, want_n = ref_oracle.count_spectrum(seq, k)
+    assert n == want_n and np.array_equal(counts, want_counts)
+    w = oracle.weighted_ranks(counts, float(n))
+    assert np.array_equal(w, ref_oracle.weighted_ranks(counts, float(n)))
+    thr = 0.8 if k == 2 else 0.75
+    got = oracle.find_regions(seq, 3, 100, 20.0, w, k, thr)
+    want = ref_oracle.find_regions(seq, 3, 100, 20.0, w, k, thr)
+    assert got == want and got  # positions and f64 scores, bit for bit
+
+
+def test_find_regions_scan_counts_equal_the_reference(genomes):
+    seq, k = genomes["random"], 6
+    counts, n = oracle.count_spectrum(seq, k)
+    w = oracle.weighted_ranks(counts, float(n))
+    sc = np.zeros(1 << (2 * k), np.int64)
+    want_sc = np.zeros_like(sc)
+    got = oracle.find_regions(seq, 0, 30, 5.0, w, k, 0.7, scan_counts=sc)
+    want = ref_oracle.find_regions(seq, 0, 30, 5.0, w, k, 0.7,
+                                   scan_counts=want_sc)
+    assert got == want and np.array_equal(sc, want_sc)
+
+
+@pytest.mark.parametrize("form", ["dense", "sparse"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chain_ranks_from_mass_bit_for_bit(seed, form):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 40, 1 << 12).astype(np.int64)
+    counts[rng.integers(0, 1 << 12, 50)] = rng.integers(1000, 90000, 50)
+    total = int(counts.sum())
+    pm = ref_ranks.cumulative_mass(counts)
+    if form == "dense":
+        vh = np.zeros(int(counts.max()) + 1, np.int64)
+        np.add.at(vh, counts, counts)
+    else:
+        vals, ncodes = np.unique(counts, return_counts=True)
+        vh = (vals, ncodes)
+    got = ranks.chain_ranks_from_mass(pm, vh, total, chunk=1000)
+    want = ref_ranks.chain_ranks_from_mass(pm, vh, total, chunk=1000)
+    assert got.dtype == np.float64
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+    assert np.array_equal(got, ref_oracle.weighted_ranks(counts, total))
+
+
+def test_chain_ranks_from_mass_native_fold_bit_for_bit(monkeypatch):
+    """Above 2^22 terms the fold runs in the host library; it equals the
+    chunked numpy fold (held to the reference above) bit for bit."""
+    rng = np.random.default_rng(5)
+    vals = np.array([1, 2, 3, 7, 300], np.int64)
+    ncodes = np.array([3_000_000, 900_000, 400_000, 50_000, 11], np.int64)
+    total = int((vals * ncodes).sum())
+    below = np.concatenate([[0], np.cumsum(vals * ncodes)[:-1]])
+    g = rng.integers(0, len(vals), 2000)
+    pm = below[g] + vals[g] * rng.integers(0, ncodes[g])
+    assert native.available()
+    got = ranks.chain_ranks_from_mass(pm, (vals, ncodes), total)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    want = ranks.chain_ranks_from_mass(pm, (vals, ncodes), total)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_extract_spans_equals_the_reference(seed):
+    rng = np.random.default_rng(seed)
+    s = rng.normal(-0.06, 0.3, 30_000)
+    s[4000:4900] += 0.45
+    s[20_000:20_300] += 0.6
+    scored = rng.random(30_000) < 0.98
+    v_got = np.zeros(30_001, np.int64)
+    v_want = np.zeros(30_001, np.int64)
+    got = extract.extract_spans(s, scored, 40, 5.0, seq_id=4,
+                                visits_full=v_got)
+    want = ref_extract.extract_spans(s, scored, 40, 5.0, seq_id=4,
+                                     visits_full=v_want)
+    assert got == want and got
+    assert np.array_equal(v_got, v_want)
+
+
+def test_region_result_matches_the_reference(golden):
+    assert [f.name for f in dataclasses.fields(api.RegionResult)] == \
+        [f.name for f in dataclasses.fields(ref_api.RegionResult)]
+    regions = [(0, 5, 90, 3.25), (2, 100, 400, 17.5)]
+    got = api._as_region_array(regions)
+    want = ref_api._as_region_array(regions)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    seqs = [golden[:5000], golden[5000:6000].encode(), "ACGN"]
+    for g, w in zip(api._as_seq_list(seqs), ref_api._as_seq_list(seqs)):
+        assert np.array_equal(g.bases, w.bases)
+        assert np.array_equal(g.valid, w.valid)
+    got = api.kmer_low_comp_regions(golden, 8, 100, 20.0, device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden, 8, 100, 20.0,
+                                         backend="jax", mode="fast")
+    for f in dataclasses.fields(ref_api.RegionResult):
+        assert np.array_equal(getattr(got, f.name), getattr(want, f.name))
+
+
+# ------------------------------------------------------- the host library
+
+@pytest.fixture
+def numpy_path(monkeypatch):
+    """The binding as it behaves where no C++ compiler is present."""
+    monkeypatch.setattr(native, "_load", lambda: None)
+    return native
+
+
+def _genome_nbases(seed, n=200_000):
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, 4, n).astype(np.uint8)
+    nb[rng.random(n) < 0.002] = 4
+    nb[5000:8000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    return nb
+
+
+def test_host_library_builds_and_loads():
+    assert native.available()
+    assert native.library_path().exists()
+    assert native.library_path().parent == native.BUILD_DIR
+
+
+@pytest.mark.parametrize("k", [10, 13])
+def test_host_spectrum_equals_the_reference(k, monkeypatch):
+    nb = _genome_nbases(k)
+    got, n = native.host_spectrum(nb, k)
+    # the reference binding's numpy path
+    p = ref_encoding.PackedSeq(bases=nb & 3, valid=nb < 4)
+    codes, kv = ref_encoding.kmer_codes_np(p, k)
+    want = np.bincount(codes[kv], minlength=1 << (2 * k))
+    assert n == int(kv.sum()) and np.array_equal(got, want)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    numpy_counts, numpy_n = native.host_spectrum(nb, k)
+    assert numpy_n == n and np.array_equal(numpy_counts, got)
+
+
+def test_count_spectrum_equals_the_oracle():
+    nb = _genome_nbases(3, 50_000)
+    got, n = native.count_spectrum(nb, 7)
+    seq = "".join("ACTGN"[b] for b in nb)
+    want, want_n = ref_oracle.count_spectrum(seq, 7)
+    assert n == want_n and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("hi", [30, 100_000])
+def test_rank_chain_bit_for_bit(hi):
+    rng = np.random.default_rng(hi)
+    counts = rng.integers(0, hi, 1 << 16).astype(np.int64)
+    counts[rng.integers(0, 1 << 16, 30)] = 0
+    total = int(counts.sum())
+    got = native.rank_chain(counts, total)
+    want = ref_oracle.weighted_ranks(counts, total)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def test_mass_of_codes_equals_the_reference():
+    rng = np.random.default_rng(9)
+    counts = rng.integers(0, 50, 1 << 14).astype(np.int32)
+    counts[rng.integers(0, 1 << 14, 20)] = 70_000  # above the dense cap
+    q = np.unique(rng.integers(0, 1 << 14, 3000)).astype(np.int64)
+    pm, vv, vn = native.mass_of_codes(counts, q)
+    assert np.array_equal(pm, ref_ranks.cumulative_mass(counts)[q])
+    vals, ncodes = np.unique(counts, return_counts=True)
+    assert np.array_equal(vv, vals) and np.array_equal(vn, ncodes)
+
+
+def _scores(seed, n=40_000):
+    rng = np.random.default_rng(seed)
+    s = rng.normal(-0.05, 0.3, n)
+    s[3000:3800] += 0.4
+    s[30_000:30_500] += 0.5
+    scored = rng.random(n) < 0.97
+    return s, scored
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_replay_scores_equals_the_reference(seed):
+    s, scored = _scores(seed)
+    s_flat = np.where(scored, s, 0.0)
+    beg, end, sc = native.replay_scores(s_flat, scored, 30, 5.0, 8192)
+    got = [(int(b), int(e), float(v)) for b, e, v in zip(beg, end, sc)]
+    want = [(b + 8192, e + 8192, v) for _, b, e, v in
+            ref_extract.extract_spans(s_flat, scored, 30, 5.0)]
+    assert got == want and got
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_replay_packed_equals_the_reference(k):
+    from kmer_spans_tpu_torch.spans.finish import rebuild_codes
+
+    rng = np.random.default_rng(k)
+    block, rows = 1024, 6
+    # consecutive candidate blocks of one genome: k - 1 halo bases, then
+    # per block a seed code (the k-mer ending at its first position) and
+    # its bases, 16 a word
+    full = rng.integers(0, 4, k - 1 + rows * block).astype(np.uint32)
+    full[k - 1 + 2 * block:k - 1 + 2 * block + 600:2] = 3  # a repeat
+    full[k + 2 * block:k - 1 + 2 * block + 600:2] = 0
+    cw = np.zeros((rows, 1 + block // 16), np.uint32)
+    for r in range(rows):
+        for j in range(k):
+            cw[r, 0] |= full[r * block + j] << np.uint32(2 * (k - 1 - j))
+        b = full[k - 1 + r * block:k - 1 + (r + 1) * block].reshape(-1, 16)
+        cw[r, 1:] = np.bitwise_or.reduce(
+            b << (2 * np.arange(16, dtype=np.uint32)), axis=1)
+    scored = rng.random((rows, block)) < 0.97
+    counts = rng.integers(0, 60, 1 << (2 * k)).astype(np.int64)
+    codes = rebuild_codes(cw, k, block)
+    counts[np.unique(codes[2, 10:600])] += 300
+    ranks_ = ref_oracle.weighted_ranks(counts, float(counts.sum()))
+    beg, end, sc = native.replay_packed(cw, scored, block, k, ranks_, 0.7,
+                                        20, 3.0, 4096)
+    got = [(int(b), int(e), float(v)) for b, e, v in zip(beg, end, sc)]
+    s = np.where(scored, ranks_[codes] - 0.7, 0.0).reshape(-1)
+    want = [(b + 4096, e + 4096, v) for _, b, e, v in
+            ref_extract.extract_spans(s, scored.reshape(-1), 20, 3.0)]
+    assert got == want and got
+
+
+def test_numpy_path_where_there_is_no_compiler(numpy_path):
+    assert not numpy_path.available()
+    assert numpy_path.rank_chain(np.ones(8, np.int64), 8) is None
+    assert numpy_path.replay_scores(np.zeros(4), np.ones(4, bool), 1, 1.0,
+                                    0) is None
+    assert numpy_path.mass_of_codes(np.ones(8, np.int32),
+                                    np.arange(3)) is None
+    assert numpy_path.chain_from_hist([1], [8], 8.0, [0, 3]) is None
+    assert numpy_path.count_spectrum(np.zeros(10, np.uint8), 2) is None
+
+
+def test_a_failed_build_is_not_remembered(monkeypatch, tmp_path):
+    """No compiler: unavailable; a compiler again: the next call builds."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    assert not native.available()
+    monkeypatch.delenv("CXX")
+    assert native.available()
+    assert native.library_path().parent == tmp_path
+
+
+def test_two_processes_building_at_once_both_load_a_whole_file(tmp_path):
+    code = """
+        import sys
+        from pathlib import Path
+        import numpy as np
+        from kmer_spans_tpu_torch.utils import native
+        native.BUILD_DIR = Path(sys.argv[1])
+        assert native.available()
+        counts, n = native.count_spectrum(np.arange(200) % 4, 3)
+        assert n == 198 and counts.sum() == 198
+        print(native.library_path())
+    """
+    env = dict(os.environ, PYTHONPATH=str(_ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(code), str(tmp_path)],
+        cwd=_ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+    paths = {out.strip() for out, _ in outs}
+    assert len(paths) == 1
+    assert sorted(f.name for f in tmp_path.iterdir()) == \
+        [Path(paths.pop()).name]  # no temporary left behind

@@ -180,6 +180,41 @@ def test_screen_scan_rejects_bad_input():
         fused_screen_scan(words, aug.to(torch.int64), thr_q, 4, 1024)
 
 
+@pytest.mark.parametrize("block", [256, 768, 1024, 3072, 8192])
+@pytest.mark.parametrize("n_words", [1, 32, 1 << 13, 1 << 14])
+def test_screen_scan_plain_any_block_and_table(block, n_words):
+    """Every block the kernel takes (its vector and word-by-word runs)
+    and tables smaller and larger than the words a 16-bit code reaches,
+    against the reference's unfused formulation (4-bit classes)."""
+    rng = np.random.default_rng(block + n_words)
+    words = rng.integers(-(2 ** 31), 2 ** 31, n_words,
+                         dtype=np.int64).astype(np.int32)
+    aug = _aug_words(rng, 3 * block, 8)
+    aug[block:2 * block] &= ~(1 << 17)  # no scored position
+    c = aug & 0xFFFF
+    nib = (words[(c >> 3) & (n_words - 1)] >> ((c & 7) * 4)) & 15
+    s = np.asarray(jax_class_scores(jnp.asarray(nib), jnp.int32(3071)))
+    scored = ((aug >> 17) & 1) == 1
+    want = jax_summaries(jnp.asarray(s.reshape(-1, block)),
+                         jnp.asarray(scored.reshape(-1, block)))
+    got = fused_screen_scan(torch.from_numpy(words), torch.from_numpy(aug),
+                            torch.tensor(3071, dtype=torch.int32), 4, block)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+def test_screen_scan_cpu_takes_offset_views():
+    """The 16-byte start the kernel needs is asked of CUDA tensors only."""
+    words, aug = _k2_case(6, 4)
+    x = torch.from_numpy(np.concatenate([[7], aug]).astype(np.int32))
+    thr_q = torch.tensor(3000, dtype=torch.int32)
+    w_t = torch.from_numpy(words)
+    for g, w in zip(fused_screen_scan(w_t, x[1:], thr_q, 4, 1024),
+                    fused_screen_scan(w_t, torch.from_numpy(aug), thr_q, 4,
+                                      1024)):
+        assert torch.equal(g, w)
+
+
 def test_tab_words_from_prerolled_inverts():
     rng = np.random.default_rng(3)
     for n_words in (32, 4096, 8192):

@@ -22,9 +22,9 @@ import torch
 from kmer_spans_tpu.oracle import count_spectrum_sparse, find_regions
 from kmer_spans_tpu.spans import pm_pipeline as ref
 from kmer_spans_tpu.stats.ranks import SparseRanks
-from kmer_spans_tpu.utils import native
 from kmer_spans_tpu_torch.spans import pm_finish
 from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
+from kmer_spans_tpu_torch.utils import native
 
 from conftest import random_seq
 from test_pm_pipeline import _arr, _plant

@@ -156,6 +156,65 @@ def test_histogram_rejects_bad_input():
         histogram.histogram(v, m[:32], 10)
 
 
+@pytest.mark.parametrize("size,cluster", [
+    (1, False), (256, False), (1 << 15, False),  # one CTA's counters
+    ((1 << 15) + 1, True), (1 << 16, True),      # two slices: cluster
+    ((1 << 16) + 1, False), (1 << 18, False),    # more: sliced
+    ((1 << 18) + 1, False), (1 << 20, False),
+])
+def test_histogram_form_rule(size, cluster):
+    """The fixed rule measured on the card: the sort screen's run
+    histograms (65536 bins) take the cluster form, the 4^9 spectrum the
+    sliced form."""
+    assert histogram.cluster_form(size) is cluster
+
+
+def test_histogram_form_rule_at_the_main_paths_shapes():
+    from kmer_spans_tpu_torch.ops import sortscreen
+
+    assert histogram.cluster_form(sortscreen.VMAX)
+    assert histogram.cluster_form(sortscreen.V2 * 256)
+    assert not histogram.cluster_form(1 << 18)  # the k = 9 count
+    assert not histogram.cluster_form(256)      # the pm value histogram
+
+
+@pytest.mark.parametrize("bad", ["strided values", "strided valid",
+                                 "size 2^31", "size -1", "devices differ"])
+def test_histogram_refuses_what_the_kernel_does_not_take(bad):
+    v = torch.zeros(64, dtype=torch.int32)
+    m = torch.ones(64, dtype=torch.bool)
+    size = 10
+    if bad == "strided values":
+        v = torch.zeros(128, dtype=torch.int32)[::2]
+    elif bad == "strided valid":
+        m = torch.ones(128, dtype=torch.bool)[::2]
+    elif bad == "size 2^31":
+        size = 1 << 31
+    elif bad == "size -1":
+        size = -1
+    else:
+        m = torch.ones(64, dtype=torch.bool, device="meta")
+    before = histogram.histogram_launches
+    for fn in (histogram.histogram, histogram_plain):
+        with pytest.raises(ValueError):
+            fn(v, m, size)
+    with pytest.raises(ValueError):
+        histogram.histogram_kernel(v, m, size, True)
+    assert histogram.histogram_launches == before
+
+
+def test_histogram_kernel_refuses_cpu_tensors():
+    """On the CPU the wrapper takes the plain version; the kernel itself
+    runs only on CUDA tensors and raises for anything else."""
+    v = torch.arange(64, dtype=torch.int32)
+    m = torch.ones(64, dtype=torch.bool)
+    for cluster in (True, False):
+        with pytest.raises(ValueError, match="unsupported device"):
+            histogram.histogram_kernel(v, m, 100, cluster)
+    got = histogram.histogram(v.reshape(8, 8), m.reshape(8, 8), 100)
+    assert torch.equal(got, histogram_plain(v, m, 100))
+
+
 # ---------------------------------------------------- the pm screen
 
 def test_run_lengths_match_jax():

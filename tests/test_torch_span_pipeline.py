@@ -315,8 +315,8 @@ def test_sort_screen_packed_payload():
 def test_sort_screen_k14_big_rank_path():
     """k = 14: sort screen, native host recount, and the candidate-only
     native rank path of finish_spans (no 4^14 f64 chain table)."""
-    from kmer_spans_tpu.utils import native
     from kmer_spans_tpu_torch.spans.finish import host_rank_chain
+    from kmer_spans_tpu_torch.utils import native
 
     if not native.available():
         pytest.skip("native library unavailable")
