@@ -14,15 +14,19 @@ Run from the repository root.  Phases, each of which raises on failure:
      2^17 identical codes; for the fused screen blocks of 256 to 32768
      with 2- and 4-bit classes, a block with no scored position, grids
      with fewer blocks than CTAs, tables of 32 to 2^14 words; for the
-     value histogram sizes 1 to 2^20 in its cluster and sliced forms,
-     2^17 identical values, all invalid, offset views of values and valid
-     whose alignments agree and differ; for the class gather tables of 2
+     value histogram sizes 1 to 2^24 (4^12) in its sliced, cluster and
+     global forms, 2^17 identical values, all invalid, offset views of
+     values and valid whose alignments agree and differ; for the class
+     gather tables of 2
      to 2^15 words, random entries, 2^17 identical entries, entries all in
      the last word, a length that is not a multiple of 4, an unaligned
      view, and the table sizes it must refuse);
   4. the golden genome through api.kmer_low_comp_regions(mode="fast") on
-     the card at k = 8 (exactly the 3 planted regions), 9, 3 and 12, equal
-     (==) to the sequential oracle's rank chain, with no rerun;
+     the card at k = 8 (exactly the 3 planted regions), 9, 3 and 12, and
+     through its default mode="exact" at k = 8 (the same 3 regions), equal
+     (==) to the sequential oracle's rank chain, with no rerun; and
+     api.kmer_spans at k = 8 with threshold and log2_median scoring, equal
+     to the oracle with the same weights;
   5. the full-size k = 8 path: N bases (default 2^28) from --seed, repeat
      islands and N gaps planted, through make_span_pipeline(packed=True)
      -> unpack_outputs -> finish_spans; kernel launch counts read around
@@ -34,11 +38,12 @@ Run from the repository root.  Phases, each of which raises on failure:
      paths' shapes, beside the least time the card could take (bytes
      moved over 3.35 TB/s): the aug words of that genome (N positions,
      block 8192, k = 8; K2 with 4- and 2-bit classes), the value
-     histogram at the k = 9 count (4^9 bins, both forms), the k = 13 pm
-     screen's run lengths (256 bins) and the k = 12 sort screen's two run
-     histograms (65536 bins each, both forms), and the class gather's
-     k = 9 codes (32768 words) and k = 12 sort-screen entries (16384
-     words);
+     histogram at the k = 9 count (4^9 bins, every form), the k = 13 pm
+     screen's run lengths (256 bins), the k = 12 sort screen's two run
+     histograms (65536 bins each, every form), and the exact path's 4^8,
+     4^10 and 4^12 spectra and k = 8 scan histogram (every form), and the
+     class gather's k = 9 codes (32768 words) and k = 12 sort-screen
+     entries (16384 words);
   7. the full-size k >= 10 path on the same genome, for k = 12 (packed
      key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
      unpack_pm_outputs -> finish_pm_spans, launch counts read around each
@@ -50,7 +55,17 @@ Run from the repository root.  Phases, each of which raises on failure:
      host recount -> finish_spans(counts=...)) on the same genome, launch
      counts read around each run, the packed vector and regions equal to
      the same run with the plain value histogram and class gather, every
-     planted island called.
+     planted island called;
+  9. the full-size exact api path on the same genome, each call with the
+     kernels and again with the plain versions, the two equal:
+     api.kmer_counts at k = 8 and 12 (n the number of valid k-mers), the
+     default api.kmer_low_comp_regions(mode="exact") at k = 8 and 12
+     (every planted island called, regions equal bit for bit) and
+     api.kmer_regions at k = 8 with scan counts and a CpG-style table at
+     min_score 20 and 0 (the second pulls candidate blocks in batches);
+     launch counts read around each kernels' run; each run's wall time,
+     count, device step, pull, host finish, batched pulls and peak memory
+     logged.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -145,6 +160,7 @@ def check_kernels(dev, seed: int) -> dict:
     from kmer_spans_tpu_torch.ops.convert import to_tensor
     from kmer_spans_tpu_torch.ops.gather import word_gather, word_gather_plain
     from kmer_spans_tpu_torch.ops.histogram import (
+        FORMS,
         SLICE_BINS,
         count_aug,
         count_aug_plain,
@@ -187,7 +203,7 @@ def check_kernels(dev, seed: int) -> dict:
         raise AssertionError(f"word_gather took a table of {nw} words")
     log("  word_gather refuses tables of 2^16 and 24 words")
     for size in (1, 100, 1 << 15, (1 << 15) + 1, 65536, 1 << 18,
-                 (1 << 18) + 1, 1 << 20):
+                 (1 << 18) + 1, 1 << 20, 1 << 24):
         n = (1 << 22) + 5
         values = rng.integers(-3, size + 40, n).astype(np.int32)
         valid = rng.random(n) < 0.8
@@ -201,15 +217,15 @@ def check_kernels(dev, seed: int) -> dict:
             (x[3:], m[:-3]),
             (x, torch.zeros_like(m)),    # all invalid
         )
-        forms = (True, False) if size > SLICE_BINS else (False,)
-        for cluster in forms:
+        forms = FORMS if size > SLICE_BINS else ("sliced", "global")
+        for form in forms:
             for args in cases:
-                e = max_abs_err(histogram_kernel(*args, size, cluster),
+                e = max_abs_err(histogram_kernel(*args, size, form),
                                 histogram_plain(*args, size))
                 torch.cuda.synchronize()
                 if e:
                     raise AssertionError(
-                        f"histogram size={size} cluster={cluster}: "
+                        f"histogram size={size} form={form}: "
                         f"max |err| {e}")
         if histogram(x, torch.zeros_like(m), size).any():
             raise AssertionError("histogram counted an invalid value")
@@ -217,9 +233,8 @@ def check_kernels(dev, seed: int) -> dict:
         if e:
             raise AssertionError(f"histogram size={size}: max |err| {e}")
         log(f"  histogram size={size}: equal to plain in the "
-            f"{' and '.join('cluster' if c else 'sliced' for c in forms)} "
-            f"form (n={n:,}, 2^17 identical values, offset views aligned "
-            "alike and unlike, all invalid)")
+            f"{', '.join(forms)} forms (n={n:,}, 2^17 identical values, "
+            "offset views aligned alike and unlike, all invalid)")
     for k in (4, 6, 8):
         aug = aug_case(rng, (1 << 22) + 5, k)
         aug[7000:7000 + (1 << 17)] = (1 << 16) | 9  # 2^17 identical codes
@@ -385,9 +400,9 @@ def hist_entry(label: str, values, valid, size: int) -> dict:
     extra = ()
     if size > hist.SLICE_BINS:
         extra = tuple(
-            (f"{name}_ms", lambda c=c: hist.histogram_kernel(values, valid,
-                                                             size, c))
-            for name, c in (("cluster", True), ("sliced", False)))
+            (f"{form}_ms", lambda form=form: hist.histogram_kernel(
+                values, valid, size, form))
+            for form in hist.FORMS)
         for _, f in extra:
             err = max(err, max_abs_err(f(), want))
     if err:
@@ -396,8 +411,7 @@ def hist_entry(label: str, values, valid, size: int) -> dict:
     premasked = values[valid & (values >= 0) & (values < size)]
     n = values.numel()
     t = in_turns(f"histogram ({label}, {int(valid.sum()):,} of {n:,} "
-                 f"valid, {size} bins; form "
-                 f"{'cluster' if hist.cluster_form(size) else 'one CTA or sliced'})",
+                 f"valid, {size} bins; form {hist.histogram_form(size)})",
                  lambda: hist.histogram(values, valid, size),
                  lambda: hist.histogram_plain(values, valid, size),
                  lambda: torch.bincount(premasked, minlength=size), extra)
@@ -491,7 +505,33 @@ def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
     return main_entry(shapes), k3
 
 
-def golden_phase(dev, k: int) -> None:
+def time_spectra(dev, nbases_dev) -> list:
+    """Phase 6, K3 at the exact path's shapes on the genome's codes: the
+    4^8 spectrum and the k = 8 scan histogram (the codes at scored
+    positions), and the 4^10 and 4^12 spectra (with the 4^9 one of
+    time_word_gather, the shapes that set the form rule)."""
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes, blocked_scored
+
+    n = nbases_dev.shape[0]
+    nb = n // BLOCK
+    b2, v2 = (nbases_dev & 3).reshape(nb, BLOCK), \
+        (nbases_dev < 4).reshape(nb, BLOCK)
+    out = []
+    for k in (8, 10, 12):
+        codes, kv = blocked_codes(b2, v2, k)
+        out.append(hist_entry(f"k = {k} spectrum", codes.reshape(-1),
+                              kv.reshape(-1), 1 << (2 * k)))
+        if k == 8:
+            scored = blocked_scored(v2, kv).reshape(-1)
+            masked = codes.reshape(-1).masked_fill_(~kv.reshape(-1), 0)
+            out.append(hist_entry("k = 8 scan histogram", masked, scored,
+                                  1 << 16))
+            del scored, masked
+        del codes, kv
+    return out
+
+
+def golden_phase(dev, k: int, mode: str = "fast") -> None:
     """Phase 4: the golden genome through the port's api."""
     from kmer_spans_tpu_torch import api
     from kmer_spans_tpu_torch.oracle import (
@@ -504,7 +544,7 @@ def golden_phase(dev, k: int) -> None:
     seq = golden_genome()
     api.exact_fallbacks = 0
     res = api.kmer_low_comp_regions(seq, k=k, min_w=MIN_W, min_score=MIN_S,
-                                    thr=THR, mode="fast", device=dev)
+                                    thr=THR, mode=mode, device=dev)
     counts, n = count_spectrum(seq, k)
     want = find_regions(seq, 0, MIN_W, MIN_S,
                         weighted_ranks(counts, float(n)), k, THR)
@@ -516,7 +556,38 @@ def golden_phase(dev, k: int) -> None:
         raise AssertionError(f"golden regions moved: {got}")
     if api.exact_fallbacks:
         raise AssertionError(f"golden k={k}: the api reran the pipeline")
-    log(f"  golden k={k}: {got} == oracle chain")
+    log(f"  golden k={k} mode={mode}: {got} == oracle chain")
+
+
+def golden_spans_phase(dev, scoring: str) -> None:
+    """Phase 4: kmer_spans at k = 8 on the golden genome, its defaults
+    (min_width 100, min_score 20; f_t the weighted median), equal to the
+    oracle with the same weights."""
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.models.scoring import (
+        Log2MedianScoring,
+        ThresholdScoring,
+    )
+    from kmer_spans_tpu_torch.oracle import (
+        count_spectrum,
+        find_regions,
+        golden_genome,
+    )
+    from kmer_spans_tpu_torch.stats.ranks import spectrum_median_freq
+
+    seq = golden_genome()
+    res = api.kmer_spans(seq, 8, scoring=scoring, device=dev)
+    counts, _ = count_spectrum(seq, 8)
+    model = (ThresholdScoring(counts, spectrum_median_freq(counts))
+             if scoring == "threshold" else Log2MedianScoring(counts))
+    want = find_regions(seq, 0, 100, 20.0, model.weights, 8, model.threshold)
+    got = [(0, int(r["beg"]), int(r["end"]), float(r["score"]))
+           for r in res.regions]
+    if got != want or not got or not np.array_equal(res.counts, counts):
+        raise AssertionError(f"golden kmer_spans {scoring}: {got[:3]} != "
+                             f"oracle {want[:3]}")
+    log(f"  golden kmer_spans k=8 {scoring}: {len(got)} regions, first "
+        f"{got[0][1:]}, == oracle")
 
 
 @contextlib.contextmanager
@@ -735,6 +806,187 @@ def class_sort_phase(dev, nbases: np.ndarray, nbases_dev, card: str):
     return launches
 
 
+@contextlib.contextmanager
+def api_stages():
+    """While on, the exact api path's stages are timed on the host clock:
+    the spectrum count (to its pull), the host staging of each sequence
+    (N-padded uint8 bases, in the count and before each device step), each
+    device step (to its synchronize), the pull of its outputs, the host
+    finish and, inside it, the batched pulls of the candidate blocks the
+    top C missed.  Yields the dict of sums in s and the number of
+    batches."""
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.parallel import device as par_device
+
+    st = {"count": 0.0, "count_staging": 0.0, "staging": 0.0,
+          "device": 0.0, "pull": 0.0, "finish": 0.0, "batches": 0,
+          "batch_s": 0.0}
+    saved = (api.device_count_spectrum, api.make_weight_span_pipeline,
+             api.finish_weight_spans, api.staged_nbases,
+             par_device.staged_nbases)
+    count0, make0, finish0, stage0, _ = saved
+
+    def staging(key):
+        def stage(*a, **kw):
+            t0 = time.perf_counter()
+            out = stage0(*a, **kw)
+            st[key] += time.perf_counter() - t0
+            return out
+        return stage
+
+    def count(*a, **kw):
+        t0 = time.perf_counter()
+        out = count0(*a, **kw)
+        st["count"] += time.perf_counter() - t0
+        return out
+
+    def make(*a, **kw):
+        fn = make0(*a, **kw)
+
+        def step(nbases, w_q):
+            t0 = time.perf_counter()
+            out = fn(nbases, w_q)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = {key: v.cpu() for key, v in out.items()}
+            st["device"] += t1 - t0
+            st["pull"] += time.perf_counter() - t1
+            return out
+
+        def pull(nbases, idx):
+            t0 = time.perf_counter()
+            codes, scored = (t.cpu() for t in fn.pull(nbases, idx))
+            st["batch_s"] += time.perf_counter() - t0
+            st["batches"] += 1
+            return codes, scored
+
+        step.pull = pull
+        return step
+
+    def finish(*a, **kw):
+        t0 = time.perf_counter()
+        res = finish0(*a, **kw)
+        st["finish"] += time.perf_counter() - t0
+        return res
+
+    (api.device_count_spectrum, api.make_weight_span_pipeline,
+     api.finish_weight_spans, api.staged_nbases,
+     par_device.staged_nbases) = (count, make, finish, staging("staging"),
+                                  staging("count_staging"))
+    try:
+        yield st
+    finally:
+        (api.device_count_spectrum, api.make_weight_span_pipeline,
+         api.finish_weight_spans, api.staged_nbases,
+         par_device.staged_nbases) = saved
+
+
+def valid_kmers(nbases: np.ndarray, k: int) -> int:
+    """The number of k-mers with no N, from the N-free stretches' lengths."""
+    ns = np.flatnonzero(nbases >= 4)
+    lens = np.diff(np.concatenate([[-1], ns, [nbases.shape[0]]])) - 1
+    return int(np.maximum(lens - k + 1, 0).sum())
+
+
+def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
+    """Phase 9: the exact api path at full size, each call with the
+    kernels and again with the plain versions on the card: kmer_counts
+    and the default kmer_low_comp_regions(mode="exact") at k = 8 and 12,
+    kmer_regions at k = 8 with a CpG-style table on the planted repeat
+    (its k-mers +1.5, every other -0.4) at min_score 20 and 0 (the pull
+    path).  Returns K3's launches in the kernels' runs."""
+    import types
+
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq, all_kmers
+    from kmer_spans_tpu_torch.ops import histogram
+
+    n = nbases.shape[0]
+    seq = PackedSeq(bases=nbases & 3, valid=nbases < 4)
+    launches = 0
+
+    def both(label, call):
+        """(kernels' result, plain result), each run timed."""
+        nonlocal launches
+        out = []
+        for plain in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            with plain_versions(plain), api_stages() as st:
+                t0 = time.perf_counter()
+                res = call()
+                wall = time.perf_counter() - t0
+            if not plain:
+                if histogram.histogram_launches < 1:
+                    raise AssertionError(f"{label}: the exact path skipped "
+                                         "the histogram")
+                launches += histogram.histogram_launches
+            rest = wall - st["count"] - st["staging"] - st["device"] - \
+                st["pull"] - st["finish"]
+            log(f"  {label}, {'plain versions' if plain else 'kernels'}: "
+                f"wall {wall:.3f} s; count {st['count'] * 1e3:.1f} ms (of "
+                f"which host staging {st['count_staging'] * 1e3:.1f} ms), "
+                f"host staging {st['staging'] * 1e3:.1f} ms, "
+                f"device step {st['device'] * 1e3:.1f} ms, pull "
+                f"{st['pull'] * 1e3:.1f} ms, host finish "
+                f"{st['finish'] * 1e3:.1f} ms (of which "
+                f"{st['batches']} batched pulls {st['batch_s'] * 1e3:.1f} "
+                f"ms), other host (weights, table) {rest * 1e3:.1f} ms; peak "
+                f"device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                f"[{card}]")
+            out.append(res)
+        return out
+
+    def same(label, got, want, fields):
+        for f in fields:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{label}: {f} differs from the plain "
+                                     "run")
+
+    def islands(res):
+        return check_islands(types.SimpleNamespace(
+            fallback=False, regions=[tuple(r)[:4] for r in res.regions]), n)
+
+    for k in (8, 12):
+        got, want = both(f"kmer_counts k={k}",
+                         lambda: api.kmer_counts(seq, k, device=dev))
+        same(f"kmer_counts k={k}", got, want, ("n", "counts"))
+        if got.n != valid_kmers(nbases, k) or got.n != got.counts.sum():
+            raise AssertionError(f"kmer_counts k={k}: n {got.n} is not the "
+                                 "number of valid k-mers")
+        log(f"  kmer_counts k={k}: n = {int(got.n):,} valid k-mers, equal "
+            "to the plain run")
+    for k in (8, 12):
+        got, want = both(
+            f"kmer_low_comp_regions k={k} exact",
+            lambda: api.kmer_low_comp_regions(seq, k, MIN_W, MIN_S, thr=THR,
+                                              device=dev))
+        same(f"exact k={k}", got, want, ("n", "counts", "regions", "w_rank"))
+        log(f"  kmer_low_comp_regions k={k} exact: {len(got.regions)} "
+            f"regions, all {islands(got)} planted islands called, equal to "
+            "the plain run bit for bit")
+    island = {"AGAGAGAG", "GAGAGAGA"}
+    w = np.array([1.5 if km in island else -0.4 for km in all_kmers(8)])
+    for min_score in (MIN_S, 0.0):
+        got, want = both(
+            f"kmer_regions k=8 min_score={min_score}",
+            lambda: api.kmer_regions(seq, 8, w, MIN_W, min_score,
+                                     device=dev))
+        same(f"kmer_regions min_score={min_score}", got, want,
+             ("n", "counts", "regions"))
+        log(f"  kmer_regions k=8 min_score={min_score}: "
+            f"{len(got.regions)} regions, all {islands(got)} planted "
+            f"islands called, scan counts sum {int(got.counts.sum()):,}, "
+            "equal to the plain run")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -749,12 +1001,22 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    clock = {"t": time.perf_counter(), "name": None}
 
-    log("phase 1: device")
+    def phase(name):
+        """Log the last phase's wall time, then the next phase's name."""
+        now = time.perf_counter()
+        if clock["name"]:
+            log(f"  ({clock['name']}: wall {now - clock['t']:.1f} s)")
+        clock.update(t=now, name=name and name.split(":")[0])
+        if name:
+            log(name)
+
+    phase("phase 1: device")
     card = card_line()
     log(card)
 
-    log("phase 2: build")
+    phase("phase 2: build")
     from kmer_spans_tpu_torch.ops import _build
     from kmer_spans_tpu_torch.utils import native
 
@@ -772,35 +1034,45 @@ def main(argv=None) -> int:
     log(f"  host library {native.library_path().name} loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     err = check_kernels(dev, args.seed)
     nbases = make_genome(args.bases, args.seed)
 
-    log("phase 4: golden genome through the api")
+    phase("phase 4: golden genome through the api")
     for k in (8, 9, 3, 12):
         golden_phase(dev, k)
+    golden_phase(dev, 8, mode="exact")
+    for scoring in ("threshold", "log2_median"):
+        golden_spans_phase(dev, scoring)
 
-    log("phase 5: full-size k = 8 path")
+    phase("phase 5: full-size k = 8 path")
     launches, nbases_dev = full_size_phase(dev, nbases, card)
 
-    log("phase 6: kernel, plain and library times at the main paths' "
+    phase("phase 6: kernel, plain and library times at the main paths' "
         f"shapes [{card}]")
     times = time_kernels(dev, nbases_dev)
     k3 = [time_histogram(dev, nbases_dev)]
     times["word_gather"], more = time_word_gather(dev, nbases_dev)
     k3 = more[:1] + k3 + more[1:]  # k = 9 count first: the JSON line's
+    k3 += time_spectra(dev, nbases_dev)
     times["histogram"] = main_entry(k3)
     err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
 
-    log("phase 7: full-size k >= 10 pm path")
+    phase("phase 7: full-size k >= 10 pm path")
     launches["histogram"] = pm_phase(dev, nbases_dev, card)
 
-    log("phase 8: full-size k = 9 class path and k = 12 sort path")
+    phase("phase 8: full-size k = 9 class path and k = 12 sort path")
     for name, count in class_sort_phase(dev, nbases, nbases_dev,
                                         card).items():
         launches[name] = launches.get(name, 0) + count
+    del nbases_dev
+    torch.cuda.empty_cache()
 
+    phase("phase 9: full-size exact api path")
+    launches["histogram"] += exact_phase(dev, nbases, card)
+
+    phase(None)
     if "jax" in sys.modules or any(
             m.split(".")[0] == "kmer_spans_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

@@ -1,21 +1,37 @@
-"""User API of the port: the flagship span caller on one device.
+"""User API of the port: k-mer counts and span calling on one device.
 
-Counterpart of ``kmer_spans_tpu/api.py`` kmer_low_comp_regions in its
-device form (mode="fast"), for 2 <= k <= 9 (the class screen of
-spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
-and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py).
-Results carry the reference's ``RegionResult`` fields: region positions
-and f64 scores are exactly the sequential reference's (candidates are
-replayed on the host through the exact rank chain).
+Counterpart of ``kmer_spans_tpu/api.py`` in its device form, with
+``device`` ("cuda" by default, or "cpu" for the kernels' plain versions)
+in place of the reference's ``backend``:
 
-Where the device step cannot cover every candidate, the call reruns it on
-the same device and counts each rerun in ``exact_fallbacks``: with twice
-the candidate capacity, until every candidate block is pulled, or, at
-k >= 10, with a list capacity doubled until the high-count run list fits.
-(The reference instead falls through to its exact path; the regions are
-the same either way.)  At k >= 10 a smallv run-list overflow first retries
-once with the packed-key strategy, as the reference does; that retry is
-not counted.
+  * kmer_counts: the 4^k spectrum (parallel/device.py, K3);
+  * kmer_regions, kmer_spans and kmer_low_comp_regions(mode="exact"), the
+    default: a weight table (models/scoring.py), its integer screen on the
+    device (spans/pipeline.py make_weight_span_pipeline, K3 for the scan
+    counts), one sequence at a time, and the exact f64 replay of the
+    candidate blocks on the host (spans/finish.py finish_weight_spans),
+    with the candidate blocks the top C missed pulled from the device in
+    batches;
+  * kmer_low_comp_regions(mode="fast"): one device pipeline over all
+    sequences at once, for 2 <= k <= 9 (the class screen of
+    spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
+    and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py);
+  * kmer_seq, kmers_to_file and read_kmers.
+
+Results carry the reference's fields: region positions and f64 scores are
+exactly the sequential reference's (candidates are replayed on the host
+from the f64 weights, or the exact rank chain).  The reference's
+backend="host" and "native" (the CPU oracle and its C++ form) are not
+ported; nothing here runs on the CPU unless device="cpu" is asked for.
+
+Where the fast device step cannot cover every candidate, the call reruns
+it on the same device and counts each rerun in ``exact_fallbacks``: with
+twice the candidate capacity, until every candidate block is pulled, or,
+at k >= 10, with a list capacity doubled until the high-count run list
+fits.  (The reference instead falls through to its exact path; the
+regions are the same either way.)  At k >= 10 a smallv run-list overflow
+first retries once with the packed-key strategy, as the reference does;
+that retry is not counted.
 """
 
 from __future__ import annotations
@@ -27,12 +43,28 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .encoding import MAX_K, PackedSeq, pack
+from .encoding import MAX_K, PackedSeq, all_kmers, kmer_to_code, pack
+from .io.fasta import read_fasta
+from .io.spectrum_file import read_kmers as _read_kmers
+from .io.spectrum_file import write_kmers
+from .models.scoring import (
+    Log2MedianScoring,
+    RankScoring,
+    ScoringModel,
+    ThresholdScoring,
+    WeightScoring,
+)
 from .ops.pmscreen import pm_params
-from .spans.finish import finish_spans, host_rank_mass
-from .spans.pipeline import make_span_pipeline
+from .parallel.device import bucket_size, device_count_spectrum, staged_nbases
+from .spans.finish import finish_spans, finish_weight_spans
+from .spans.pipeline import (
+    make_span_pipeline,
+    make_weight_span_pipeline,
+    quantize_weight_table,
+)
 from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
 from .spans.pm_pipeline import make_pm_span_pipeline
+from .stats.ranks import cumulative_mass, spectrum_median_freq
 from .utils import native
 
 #: device reruns after a candidate- or list-capacity overflow
@@ -49,16 +81,6 @@ _REGION_DTYPE = np.dtype(
 )
 
 
-@dataclasses.dataclass
-class RegionResult:
-    """What kmer_low_comp_regions returns (the reference's fields)."""
-
-    n: np.ndarray  # the reference's n slot
-    counts: np.ndarray | None
-    regions: np.ndarray  # structured (seq_id, beg, end, score, entropy)
-    w_rank: np.ndarray | None = None
-
-
 def _as_region_array(regions) -> np.ndarray:
     out = np.zeros(len(regions), dtype=_REGION_DTYPE)
     for i, (sid, beg, end, score) in enumerate(regions):
@@ -72,35 +94,278 @@ def _as_seq_list(seqs) -> list[PackedSeq]:
     return [pack(s) for s in seqs]
 
 
+# ---------------------------------------------------------------------------
+# Spectrum counting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KmerCountResult:
+    """What kmer_counts returns (the reference's fields)."""
+
+    k: int
+    n: float  # total k-mers counted (the reference returns a double)
+    counts: np.ndarray  # int64 [4^k]
+    f: np.ndarray | None = None  # counts / sum(counts) when with_f
+
+
+def kmer_counts(seqs, k: int, with_f: bool = True,
+                device="cuda") -> KmerCountResult:
+    """Dense 4^k spectrum over the combined set of sequences, counted on
+    ``device`` (reference kmer_counts; kmer_spans.R:18-27).
+
+    Sequences shorter than k are skipped (src/kmer_spans.c:478-479).
+    """
+    counts, n = device_count_spectrum(_as_seq_list(seqs), k, device)
+    f = counts / counts.sum() if with_f and counts.sum() else None
+    return KmerCountResult(k=k, n=float(n), counts=counts, f=f)
+
+
+# ---------------------------------------------------------------------------
+# Span calling
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RegionResult:
+    """What the span callers return (the reference's fields)."""
+
+    n: np.ndarray  # the reference's n slot (its shape varies by call)
+    counts: np.ndarray | None
+    regions: np.ndarray  # structured (seq_id, beg, end, score, entropy)
+    w_rank: np.ndarray | None = None
+
+
+def _score_table(k: int, kmer_scores) -> np.ndarray:
+    """Resolve scores to a 4^k f64 array in 2-bit index order.
+
+    Accepts a dict {kmer string: score} in any order (the R wrapper's
+    name-reorder, kmer_spans.R:44-47) or an array already in 2-bit order.
+    """
+    size = 1 << (2 * k)
+    if isinstance(kmer_scores, dict):
+        if len(kmer_scores) != size:
+            raise ValueError(f"there should be a total of 4^k ({size}) scores")
+        table = np.empty(size, dtype=np.float64)
+        seen = np.zeros(size, dtype=bool)
+        for kmer, sc in kmer_scores.items():
+            if len(kmer) != k:
+                raise ValueError(f"k-mer {kmer!r} is not length {k}")
+            code = kmer_to_code(kmer)
+            table[code] = sc
+            seen[code] = True
+        if not seen.all():
+            raise ValueError("all kmers not defined")
+        return table
+    table = np.asarray(kmer_scores, dtype=np.float64)
+    if table.shape != (size,):
+        raise ValueError(f"kmer_scores must have 4^k = {size} entries")
+    return table
+
+
+def _call_regions(
+    packed: list[PackedSeq],
+    k: int,
+    model: ScoringModel,
+    min_width: int,
+    min_score: float,
+    device: torch.device,
+    want_scan_counts: bool,
+):
+    """The span-calling core of kmer_regions, kmer_low_comp_regions(mode=
+    "exact") and kmer_spans: one device step per sequence, block 4096,
+    C = min(128, blocks) (reference api.py:204-243), its candidates
+    replayed on the host.
+
+    Returns (regions, scan counts int64 [4^k] or None).
+    """
+    block = 4096
+    size = 1 << (2 * k)
+    scan_counts = np.zeros(size, dtype=np.int64) if want_scan_counts else None
+    all_regions = []
+    w_q, scale = quantize_weight_table(model.weights, model.threshold, block)
+    w_q = torch.from_numpy(w_q).to(device)
+    for i, p in enumerate(packed):
+        if p.n < k:
+            continue
+        npad = max(bucket_size(p.n), block)
+        fn = make_weight_span_pipeline(
+            k, block=block, cand_blocks=min(128, npad // block),
+            with_scan_counts=want_scan_counts, device=device)
+        nbases = torch.from_numpy(staged_nbases(p, npad)).to(device)
+        out = {key: v.cpu().numpy() for key, v in fn(nbases, w_q).items()}
+        seq_scan = np.zeros(size, np.int64) if want_scan_counts else None
+        res = finish_weight_spans(
+            out, npad, model.weights, model.threshold, min_width, min_score,
+            scale, block=block, seq_id=i, scan_counts=seq_scan,
+            pull_fn=fn.pull, nbases_dev=nbases)
+        if res.fallback:
+            raise AssertionError("the pull path left a candidate block out")
+        all_regions.extend(res.regions)
+        if want_scan_counts:
+            scan_counts += seq_scan
+            scan_counts += out["scan_hist"].astype(np.int64)
+    return all_regions, scan_counts
+
+
+def kmer_regions(
+    seqs, k: int, kmer_scores, min_width: int, min_score: float,
+    device="cuda",
+) -> RegionResult:
+    """Arbitrary-weight span calling (reference kmer_regions_r, :490-546).
+
+    Returns n = total sequence length (of sequences >= k), scan counts
+    (k-mers at *scanned* positions, rescans counted again, as the
+    reference does), and the regions.
+    """
+    if k > MAX_K:
+        raise ValueError("kmer sizes >= 16 not supported")
+    dev = resolve_device(device)
+    packed = _as_seq_list(seqs)
+    model = WeightScoring(_score_table(k, kmer_scores))
+    total_len = float(sum(p.n for p in packed if p.n >= k))
+    regions, scan_counts = _call_regions(
+        packed, k, model, min_width, min_score, dev, want_scan_counts=True)
+    return RegionResult(
+        n=np.array([total_len]),
+        counts=scan_counts,
+        regions=_as_region_array(regions),
+    )
+
+
 def kmer_low_comp_regions(
     seqs, k: int, min_w: int, min_score: float, thr: float = 0.75,
-    mode: str = "fast", device="cuda",
+    mode: str = "exact", device="cuda",
 ) -> RegionResult:
     """Spectrum -> weighted ranks -> rank-scored spans (reference
     kmer_low_comp_regions, src/kmer_spans.c:548-621), on ``device``.
 
-    mode="fast" is the only mode ported: the sparse device pipeline over
-    all sequences at once (concatenated with N separators), exact f64
-    replay of candidates, for 2 <= k <= 15.  mode="exact" (the
-    reference's default) is still to be ported and raises
-    NotImplementedError.  k = 1 raises ValueError: the class table packs
-    8 ranks a word and 4^1 fill none (the reference's fast path fails
-    there too).
+    mode="exact" (the default, as in the reference): the spectrum on the
+    device, the reference's sequential f64 rank chain on the host, then
+    the weight pipeline one sequence at a time; spans bit-identical to the
+    C reference, for 1 <= k <= 15.  mode="fast": the sparse device
+    pipeline over all sequences at once (concatenated with N separators),
+    exact f64 replay of candidates, for 2 <= k <= 15; k = 1 raises
+    ValueError there, since the class table packs 8 ranks a word and 4^1
+    fill none (the reference's fast path fails there too).
     """
-    if mode == "exact":
-        raise NotImplementedError(
-            "mode='exact' on the device is not ported yet: ROADMAP queue 1 "
-            "item 6")
-    if mode != "fast":
+    if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k should be in [1, {MAX_K}]")
-    if k < 2:
-        raise ValueError(
-            "mode='fast' needs k >= 2: the class table packs 8 ranks a word")
     dev = resolve_device(device)
-    return _low_comp_fast(_as_seq_list(seqs), k, min_w, min_score, thr, dev)
+    packed = _as_seq_list(seqs)
+    if mode == "fast":
+        if k < 2:
+            raise ValueError(
+                "mode='fast' needs k >= 2: the class table packs 8 ranks a "
+                "word")
+        return _low_comp_fast(packed, k, min_w, min_score, thr, dev)
+    cr = kmer_counts(packed, k, with_f=False, device=dev)
+    model = RankScoring(cr.counts, cr.n, thr)
+    regions, _ = _call_regions(packed, k, model, min_w, min_score, dev,
+                               want_scan_counts=False)
+    return RegionResult(
+        n=np.array([cr.n, 0.0]),  # slot 1 is always 0 in the reference
+        counts=cr.counts,
+        regions=_as_region_array(regions),
+        w_rank=model.weights,
+    )
 
+
+def kmer_spans(
+    seqs,
+    k: int,
+    scoring: str = "rank",
+    min_width: int = 100,
+    min_score: float = 20.0,
+    thr: float = 0.75,
+    f_t: float | None = None,
+    kmer_scores=None,
+    device="cuda",
+) -> RegionResult:
+    """Span calling with any of the reference's scoring functions.
+
+    scoring:
+      * "rank"        — s = rank_i - thr (the kmer.low.comp.regions model)
+      * "threshold"   — s = +1 if f_i >= f_t else -1 (README.md:34-42);
+                        f_t defaults to the weighted median frequency
+      * "log2_median" — s = log2(f_i / f_med) (README.md:27-32); a
+                        zero-count k-mer scores -inf
+      * "weights"     — arbitrary caller table (kmer.regions)
+    """
+    dev = resolve_device(device)
+    packed = _as_seq_list(seqs)
+    if scoring == "weights":
+        if kmer_scores is None:
+            raise ValueError("scoring='weights' requires kmer_scores")
+        return kmer_regions(packed, k, kmer_scores, min_width, min_score,
+                            device=dev)
+    cr = kmer_counts(packed, k, with_f=False, device=dev)
+    if scoring == "rank":
+        model = RankScoring(cr.counts, cr.n, thr)
+    elif scoring == "threshold":
+        if f_t is None:
+            f_t = spectrum_median_freq(cr.counts)
+        model = ThresholdScoring(cr.counts, f_t)
+    elif scoring == "log2_median":
+        model = Log2MedianScoring(cr.counts)
+    else:
+        raise ValueError(f"unknown scoring {scoring!r}")
+    regions, _ = _call_regions(packed, k, model, min_width, min_score, dev,
+                               want_scan_counts=False)
+    return RegionResult(
+        n=np.array([cr.n]),
+        counts=cr.counts,
+        regions=_as_region_array(regions),
+        w_rank=model.weights if scoring == "rank" else None,
+    )
+
+
+def kmer_seq(k: int) -> list[str]:
+    """All 4^k k-mer strings in 2-bit index order (A, C, T, G)."""
+    return all_kmers(k)
+
+
+# ---------------------------------------------------------------------------
+# Spectrum files (reference kmers.to.file / read.kmers, kmer_spans.R:135-186)
+# ---------------------------------------------------------------------------
+
+def kmers_to_file(seq_f, out_prefix: str, k, min_l: int = 100_000,
+                  device="cuda"):
+    """FASTA -> binary spectrum file for each k in ``k`` (scalar or list),
+    counted on ``device``.
+
+    Sequences shorter than min_l are dropped before counting (reference
+    default 1e5).  Returns (seq_f, out_f, seq_size, seq_fsize, seq_fl) like
+    the reference; out_f is None when reading or filtering fails.
+    """
+    ks = [int(k)] if np.isscalar(k) else [int(x) for x in k]
+    out_f = f"{out_prefix}counts_{'_'.join(str(x) for x in ks)}.bin"
+    dev = resolve_device(device)
+    try:
+        records = read_fasta(seq_f)
+        seq_size = sum(len(s) for _, s in records)
+        kept = [s for _, s in records if len(s) >= min_l]
+        seq_fsize = sum(len(s) for s in kept)
+        seq_fl = len(kept)
+        if not kept:
+            raise ValueError("no sequence after length filtering")
+        packed = [pack(s) for s in kept]
+        counts = [kmer_counts(packed, kk, with_f=False, device=dev).counts
+                  for kk in ks]
+    except (OSError, ValueError):
+        return (seq_f, None, 0, 0, 0)
+    write_kmers(out_f, counts)
+    return (seq_f, out_f, seq_size, seq_fsize, seq_fl)
+
+
+def read_kmers(fname):
+    """Read a binary spectrum file (magic 310572); None on bad magic."""
+    return _read_kmers(fname)
+
+
+# ---------------------------------------------------------------------------
+# The fast path (mode="fast")
+# ---------------------------------------------------------------------------
 
 def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
                    cand_blocks=128):
@@ -147,7 +412,7 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
         n=np.array([float(total), 0.0]),
         counts=counts,
         regions=_as_region_array(regions),
-        w_rank=host_rank_mass(counts).astype(np.float64) / max(total, 1),
+        w_rank=cumulative_mass(counts).astype(np.float64) / max(total, 1),
     )
 
 

@@ -24,16 +24,23 @@
 //     cluster.sync() after the stream keeps every CTA's shared memory alive
 //     until no other CTA adds into it;
 //   * sliced form: grid.y splits the bins into slices of 2^15 counters, one
-//     CTA each, and every slice re-reads the input.
+//     CTA each, and every slice re-reads the input;
+//   * global form (any size; the 4^10-4^15 spectra): no private counters.
+//     The input is read once, and each valid position adds into the int32
+//     output in global memory (the L2), after its warp has gathered equal
+//     values (__match_any_sync): one atomic per distinct value in the warp,
+//     so a low-complexity run of one k-mer costs one add per 32 positions.
 // Sizes above one cluster's 2^18 bins take grid.y rows of clusters.  The
 // wrapper (ops/histogram.py) picks the form by a fixed rule measured on the
 // card: a remote add into another SM's shared memory costs several local
 // ones, so the cluster form wins where few values land in other CTAs'
 // slices (two CTAs, the sort screen's sparse run histograms) and loses to
 // the sliced form's L2-served re-reads where every position counts into
-// eight slices (the 4^9 spectrum).  Each CTA flushes its own non-zero
-// counters with one global atomic each at its end; the caller zeroes the
-// output.
+// eight slices (the 4^9 spectrum); the sliced form re-reads the input once
+// per 2^15 bins (512 times at 4^12), so above a measured crossover the
+// global form's one read wins.  Each CTA of the shared-memory forms flushes
+// its own non-zero counters with one global atomic each at its end; the
+// caller zeroes the output.
 
 #include <cooperative_groups.h>
 
@@ -50,6 +57,9 @@ namespace {
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kBins = kst::kHistBins;
 constexpr int kThreads = kst::kHistThreads;
+constexpr int kGlobalThreads = 256;
+
+enum Form { kSliced = 0, kClusterForm = 1, kGlobal = 2 };
 
 template <bool kCluster>
 struct Adder {
@@ -198,23 +208,108 @@ cudaError_t launch(const int32_t* values, const uint8_t* valid, int64_t n,
   return cudaGetLastError();
 }
 
+
+// One warp's values into the global counters: lanes holding equal values
+// (ok) elect their lowest lane, which adds their number.  Every lane of the
+// warp calls it together.
+__device__ __forceinline__ void warp_add(int32_t* __restrict__ out, int32_t v,
+                                         bool ok) {
+  const uint32_t key = ok ? (uint32_t)v : 0xFFFFFFFFu;  // v < 2^31: no clash
+  const uint32_t peers = __match_any_sync(0xFFFFFFFFu, key);
+  if (ok && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(out + v, __popc(peers));
+}
+
+// The global form.  values[0, head) and the tail after the last whole int4
+// (fewer than 4 values each) go one atomic a value; the int4 groups go a
+// warp at a time, every lane of the warp in each step, so that each of the
+// four values of a group can be matched across the warp.
+template <bool kVecValid>
+__global__ void __launch_bounds__(kGlobalThreads)
+    global_hist_kernel(const int32_t* __restrict__ values,
+                       const uint8_t* __restrict__ valid, int64_t n,
+                       int64_t head, int32_t size, int32_t* __restrict__ out) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;  // a multiple of 32
+  const int64_t n4 = (n - head) / 4;
+  const int64_t rest = head + 4 * n4;
+  if (tid < head + (n - rest)) {
+    const int64_t i = tid < head ? tid : rest + (tid - head);
+    const int32_t v = values[i];
+    if (valid[i] && (uint32_t)v < (uint32_t)size) atomicAdd(out + v, 1);
+  }
+  const int4* v4 = reinterpret_cast<const int4*>(values + head);
+  const uint8_t* m = valid + head;
+  for (int64_t base = tid - (threadIdx.x & 31); base < n4; base += stride) {
+    const int64_t i = base + (threadIdx.x & 31);
+    int4 q = make_int4(0, 0, 0, 0);
+    uint32_t b0 = 0, b1 = 0, b2 = 0, b3 = 0;
+    if (i < n4) {
+      q = __ldg(v4 + i);
+      if constexpr (kVecValid) {
+        const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(m) + i);
+        b0 = w & 0xFF;
+        b1 = (w >> 8) & 0xFF;
+        b2 = (w >> 16) & 0xFF;
+        b3 = w >> 24;
+      } else {
+        b0 = __ldg(m + 4 * i);
+        b1 = __ldg(m + 4 * i + 1);
+        b2 = __ldg(m + 4 * i + 2);
+        b3 = __ldg(m + 4 * i + 3);
+      }
+    }
+    warp_add(out, q.x, b0 && (uint32_t)q.x < (uint32_t)size);
+    warp_add(out, q.y, b1 && (uint32_t)q.y < (uint32_t)size);
+    warp_add(out, q.z, b2 && (uint32_t)q.z < (uint32_t)size);
+    warp_add(out, q.w, b3 && (uint32_t)q.w < (uint32_t)size);
+  }
+}
+
+template <bool kVecValid>
+cudaError_t launch_global(const int32_t* values, const uint8_t* valid,
+                          int64_t n, int64_t head, int32_t size, int32_t* out,
+                          int num_sms, cudaStream_t stream) {
+  auto kernel = global_hist_kernel<kVecValid>;
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kGlobalThreads, 0);
+  if (err != cudaSuccess) return err;
+  // enough CTAs to fill the card once, and no more than the input feeds
+  // (16 positions a thread); at least one, for the head and tail
+  const int64_t fill = (int64_t)num_sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t feed = (n + 16 * kGlobalThreads - 1) / (16 * kGlobalThreads);
+  int64_t gx = fill < feed ? fill : feed;
+  if (gx < 1) gx = 1;
+  kernel<<<(unsigned)gx, kGlobalThreads, 0, stream>>>(values, valid, n, head,
+                                                      size, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // values: int32 [n]; valid: bool [n] (one byte each); counts: int32 [size],
-// zeroed by the caller.  cluster != 0 takes the cluster form above 2^15
-// bins, else the sliced form.  Returns a cudaError_t.
+// zeroed by the caller.  form: 0 the sliced form, 1 the cluster form above
+// 2^15 bins (the sliced form at or below), 2 the global form.  Returns a
+// cudaError_t.
 extern "C" int kst_histogram(const void* values, const void* valid, int64_t n,
-                             int32_t size, int32_t cluster, void* counts,
+                             int32_t size, int32_t form, void* counts,
                              int32_t num_sms, void* stream) {
-  if (size < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  if (size < 1 || n < 0 || form < kSliced || form > kGlobal)
+    return (int)cudaErrorInvalidValue;
   const int32_t* v = static_cast<const int32_t*>(values);
   const uint8_t* m = static_cast<const uint8_t*>(valid);
   int64_t head = (int64_t)(((16 - ((uintptr_t)v & 15)) & 15) / 4);
   if (head > n) head = n;
   const bool vec_valid = (((uintptr_t)(m + head)) & 3) == 0;
-  const bool use_cluster = cluster != 0 && size > kBins;
+  const bool use_cluster = form == kClusterForm && size > kBins;
   int32_t* out = static_cast<int32_t*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == kGlobal)
+    return (int)(vec_valid
+                     ? launch_global<true>(v, m, n, head, size, out, num_sms, s)
+                     : launch_global<false>(v, m, n, head, size, out, num_sms,
+                                            s));
   if (use_cluster)
     return (int)(vec_valid
                      ? launch<true, true>(v, m, n, head, size, out, num_sms, s)

@@ -11,7 +11,8 @@ reference's (src/kmer_spans.c:6-41):
   * a k-mer's code concatenates 2-bit values MSB-first, the rolling update
     ``code = (code << 2 | base) & (4^k - 1)``.
 
-k is capped at 15, which keeps codes within int32 (4^15 = 2^30).
+k is capped at 15, which keeps codes within int32 (4^15 = 2^30).  Decoded,
+the 2-bit values read A, C, T, G (``NUC``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+#: Decode table: 2-bit value -> nucleotide (index order A, C, T, G)
+NUC = "ACTG"
+NUC_BYTES = np.frombuffer(b"ACTG", dtype=np.uint8)
 
 #: Maximum supported k (4^15 = 2^30 fits int32)
 MAX_K = 15
@@ -64,6 +69,28 @@ def pack(seq) -> PackedSeq:
     else:
         raw = np.asarray(seq, dtype=np.uint8)
     return PackedSeq(bases=BASE_TABLE[raw], valid=VALID_TABLE[raw])
+
+
+def kmer_to_code(kmer: str) -> int:
+    """Encode a k-mer string to its integer code (MSB-first 2-bit packing)."""
+    code = 0
+    for ch in kmer:
+        code = (code << 2) | ((ord(ch) >> 1) & 3)
+    return code
+
+
+def all_kmers(k: int) -> list[str]:
+    """All 4^k k-mer strings in 2-bit index order (reference kmer_seq_r)."""
+    if k < 1 or k > MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    n = 1 << (2 * k)
+    codes = np.arange(n, dtype=np.int64)
+    cols = []
+    for shift in range(2 * (k - 1), -1, -2):
+        cols.append(NUC_BYTES[(codes >> shift) & 3])
+    mat = np.stack(cols, axis=1)  # [n, k] uint8
+    flat = mat.tobytes().decode("ascii")
+    return [flat[i * k : (i + 1) * k] for i in range(n)]
 
 
 def kmer_codes_np(packed: PackedSeq, k: int):

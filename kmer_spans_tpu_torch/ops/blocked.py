@@ -1,9 +1,10 @@
 """Blocked genome ops: the genome as (nb, block) tiles of int32/bool tensors.
 
 Counterpart of ``kmer_spans_tpu/ops/blocked.py`` for the span pipelines
-(k <= 8 and 10 <= k <= 15): rolling codes with the k-1 halo, the scored
-mask, the integer per-block max-plus summaries (the plain version that K2
-fuses) and their cross-block composition.  Plain PyTorch; every function
+and the spectrum count (1 <= k <= 15): rolling codes with the k-1 halo
+(of the whole genome, or of chosen blocks alone), the scored mask, the
+integer per-block max-plus summaries (the plain version that K2 fuses)
+and their cross-block composition.  Plain PyTorch; every function
 runs on whatever device its tensors lie on.
 """
 
@@ -38,9 +39,16 @@ def blocked_codes(bases2d: torch.Tensor, valid2d: torch.Tensor, k: int):
     of each tile to keep the peak at genome scale down.
     """
     h = k - 1
-    eb = halo_blocks(bases2d.to(torch.int32), h)
-    ev = halo_blocks(valid2d, h, fill=False)
-    B = bases2d.shape[1]
+    return _rolling(halo_blocks(bases2d.to(torch.int32), h),
+                    halo_blocks(valid2d, h, fill=False), k,
+                    bases2d.shape[1])
+
+
+def _rolling(eb: torch.Tensor, ev: torch.Tensor, k: int, B: int):
+    """Codes and validity of the k-mers ending at columns k-1 .. k-2+B of
+    int32 bases ``eb`` and validity ``ev`` (rows of k-1 halo columns, then
+    the block), each k-mer's bases MSB-first."""
+    h = k - 1
     code = eb[:, h:h + B].clone()
     kv = ev[:, h:h + B].clone()
     for j in range(1, k):
@@ -60,6 +68,27 @@ def blocked_scored(valid2d: torch.Tensor, kmer_valid: torch.Tensor):
     nxt = torch.cat(
         [valid2d[:, 1:], torch.cat([valid2d[1:, :1], last], 0)], 1)
     return kmer_valid & nxt
+
+
+def block_rows_codes(nbases: torch.Tensor, idx: torch.Tensor, k: int,
+                     block: int):
+    """Codes and scored mask of the blocks ``idx`` alone.
+
+    nbases: uint8 [nb * block], N as 4; idx: integer [C] block indices.
+    Returns (codes int32 [C, block], set to 0 where the k-mer is invalid,
+    scored bool [C, block]): rows idx of ``blocked_codes`` (masked) and
+    ``blocked_scored`` over the whole genome, computed from a gather of
+    each block, its k-1 halo and the next position (N outside the genome).
+    """
+    h = k - 1
+    n = nbases.shape[0]
+    pos = (idx.to(torch.int64)[:, None] * block
+           + torch.arange(-h, block + 1, device=nbases.device))
+    inside = (pos >= 0) & (pos < n)
+    x = torch.where(inside, nbases[pos.clamp(0, n - 1)], 4)
+    v = x < 4
+    code, kv = _rolling((x & 3).to(torch.int32), v, k, block)
+    return torch.where(kv, code, 0), kv & v[:, h + 1:h + 1 + block]
 
 
 def blocked_scan_summaries_int(s2d: torch.Tensor, scored2d: torch.Tensor):

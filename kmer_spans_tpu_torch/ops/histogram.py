@@ -7,8 +7,9 @@ the dense histogram of ``values[valid]``, counterpart of pallas_histogram
 (with ``count_spectrum`` for pallas_count_spectrum); its kernel is
 ``csrc/histogram.cu``, which reads ``values`` and ``valid`` itself: no
 torch pass runs over them first, and nothing is copied.  Above 2^15 bins
-it takes the cluster form (one read of the input) or the sliced form (one
-read per 2^15 bins) by the fixed rule ``cluster_form``.
+it takes the cluster form (one read of the input), the sliced form (one
+read per 2^15 bins) or the global form (one read, atomics into the output
+in global memory) by the fixed rule ``histogram_form``.
 
 The plain versions are torch.bincount.  A CPU tensor goes to the plain
 version, a CUDA tensor to the kernel: there is no fallback between them.
@@ -31,6 +32,11 @@ histogram_launches = 0
 SLICE_BINS = 1 << 15
 #: the largest size at which K3 takes its cluster form
 CLUSTER_MAX_BINS = 2 * SLICE_BINS
+#: the largest size at which K3 takes a shared-memory form; the global
+#: form above (histogram_form)
+GLOBAL_ABOVE_BINS = 1 << 18
+#: K3's forms, in the order of csrc/histogram.cu's Form
+FORMS = ("sliced", "cluster", "global")
 
 
 def cluster_form(size: int) -> bool:
@@ -46,6 +52,24 @@ def cluster_form(size: int) -> bool:
     against 3.224 ms).
     """
     return SLICE_BINS < size <= CLUSTER_MAX_BINS
+
+
+def histogram_form(size: int) -> str:
+    """K3's form at ``size`` bins: "cluster" where ``cluster_form``, the
+    "global" form above GLOBAL_ABOVE_BINS, else "sliced" (one CTA's
+    counters up to SLICE_BINS).
+
+    The sliced form re-reads the input once per SLICE_BINS counters (512
+    reads at the 4^12 spectrum); the global form reads it once and adds
+    into the output in global memory.  A fixed rule from the times on an
+    NVIDIA H100 80GB HBM3 at 700 W, the spectra of a 2^28-base genome
+    (PERF.md, K3 forms), sliced / cluster / global in ms: 4^9 bins
+    2.530 / 3.224 / 3.197, 4^10 bins 8.398 / 4.032 / 3.186, 4^12 bins
+    125.3 / 20.99 / 12.21; the crossover lies between 2^18 and 2^20.
+    """
+    if cluster_form(size):
+        return "cluster"
+    return "global" if size > GLOBAL_ABOVE_BINS else "sliced"
 
 
 def _check_aug(aug: torch.Tensor, k: int) -> None:
@@ -122,12 +146,15 @@ def histogram_plain(values: torch.Tensor, valid: torch.Tensor,
 
 
 def histogram_kernel(values: torch.Tensor, valid: torch.Tensor, size: int,
-                     cluster: bool) -> torch.Tensor:
-    """Launch K3 on CUDA tensors in the given form (counted by nobody:
-    ``histogram`` counts its own launches)."""
+                     form: str) -> torch.Tensor:
+    """Launch K3 on CUDA tensors in the given form, one of FORMS (counted
+    by nobody: ``histogram`` counts its own launches).  The cluster form
+    at or below SLICE_BINS bins is the sliced form."""
     _check_values(values, valid, size)
     if values.device.type != "cuda":
         raise ValueError(f"histogram: unsupported device {values.device}")
+    if form not in FORMS:
+        raise ValueError(f"histogram: unknown form {form!r}")
     counts = torch.zeros(size, dtype=torch.int32, device=values.device)
     lib = _build.library()
     with torch.cuda.device(values.device):
@@ -135,7 +162,7 @@ def histogram_kernel(values: torch.Tensor, valid: torch.Tensor, size: int,
         err = lib.kst_histogram(
             ctypes.c_void_p(values.data_ptr()),
             ctypes.c_void_p(valid.data_ptr()), values.numel(), size,
-            int(cluster), ctypes.c_void_p(counts.data_ptr()),
+            FORMS.index(form), ctypes.c_void_p(counts.data_ptr()),
             props.multi_processor_count,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "kst_histogram")
@@ -157,7 +184,7 @@ def histogram(values: torch.Tensor, valid: torch.Tensor,
     _check_values(values, valid, size)
     if values.device.type == "cpu":
         return histogram_plain(values, valid, size)
-    counts = histogram_kernel(values, valid, size, cluster_form(size))
+    counts = histogram_kernel(values, valid, size, histogram_form(size))
     histogram_launches += 1
     return counts
 

@@ -1,6 +1,8 @@
 """Exact span extraction from per-position scores (host, f64).
 
-The port's own copy of ``kmer_spans_tpu/spans/extract.py``.  It implements
+The port's own copy of ``kmer_spans_tpu/spans/extract.py``, which also
+takes -inf scores (a reset to 0, as in the sequential reference; the
+reference's screen turns NaN after one).  It implements
 the excursion recursion of SURVEY.md A.4: the reference's jump-back rescan
 is, per positive excursion of the score trace,
 
@@ -65,8 +67,17 @@ def _first_nonpositive(s: np.ndarray, u: int):
 
 
 def _screen_candidates(s: np.ndarray, min_width: int, min_score: float):
-    """Vectorized candidate runs: list of (start, end) worth exact replay."""
+    """Vectorized candidate runs: list of (start, end) worth exact replay.
+
+    A -inf score (which resets S to 0) screens as a finite value below
+    minus the sum of every finite |s| here: it resets P - M the same way,
+    where -inf itself would leave P - M undefined from there on.
+    """
     n = s.shape[0]
+    neg_inf = np.isneginf(s)
+    if neg_inf.any():
+        reset = -(np.abs(s[~neg_inf]).sum() + 1.0)
+        s = np.where(neg_inf, reset, s)
     P = np.cumsum(s)
     M = np.minimum.accumulate(np.minimum(P, 0.0))
     S = P - M

@@ -1,10 +1,15 @@
 """Host finishers of the span pipeline: numpy copies of the reference's.
 
 Verbatim copies of ``kmer_spans_tpu/spans/pipeline.py``'s host code
-(``host_rank_mass`` .. ``_replay_stretch``), which cannot be imported
+(``host_rank_chain`` .. ``_replay_stretch``; its ``host_rank_mass`` is
+stats/ranks.py ``cumulative_mass``), which cannot be imported
 without JAX: that module pulls in the Pallas kernels.  Only the imports
 differ.  tests/test_torch_finish.py holds every copy equal to its
-original on the same inputs.
+original on the same inputs.  ``finish_weight_spans`` differs in two
+places, both held by tests/test_torch_weight_pipeline.py: its pulled
+blocks and its rescan counts have names of their own (the reference
+reuses one name for both, so a second candidate stretch after a pull
+fails there), and the replay resets at a -inf weight.
 
 finish_spans composes the integer block summaries exactly in int64
 (a sound upper bound on every block's running score), gathers candidate
@@ -17,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..ops.blocked import SCREEN_NEG
 from ..ops.gather import SCREEN_SCALE
@@ -26,19 +32,6 @@ from .extract import extract_spans
 
 #: host int64 "-inf" for composed B-parts
 _NEG64 = -(1 << 62)
-
-
-def host_rank_mass(counts: np.ndarray) -> np.ndarray:
-    """Exact exclusive cumulative mass on the host (== device _rank_mass).
-
-    Stable sort ties break by k-mer index ascending (SURVEY A.2 / glibc
-    qsort_r parity); int64 so multi-Gb totals can't overflow.
-    """
-    counts = np.asarray(counts, dtype=np.int64)
-    order = np.argsort(counts, kind="stable")
-    excl = np.zeros(counts.shape[0], np.int64)
-    excl[order] = np.concatenate([[0], np.cumsum(counts[order])[:-1]])
-    return excl
 
 
 def host_rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
@@ -354,6 +347,121 @@ def finish_spans(
                         seq_id,
                     )
                 )
+        i = j + 1
+    return SpanPipelineResult(regions=regions, fallback=False)
+
+
+def finish_weight_spans(
+    out: dict,
+    n: int,
+    weights: np.ndarray,
+    threshold: float,
+    min_width: int,
+    min_score: float,
+    scale: float,
+    block: int = 4096,
+    seq_id: int = 0,
+    scan_counts: np.ndarray | None = None,
+    pull_fn=None,
+    nbases_dev=None,
+) -> SpanPipelineResult:
+    """Host finisher of the arbitrary-weight pipeline: exact candidacy from
+    int64-composed summaries, exact f64 replay from the original weights,
+    the reference's scan counts (rescans count twice).
+
+    The counterpart of the reference's finish_weight_spans
+    (kmer_spans_tpu/spans/pipeline.py:697).  ``out`` holds the pipeline's
+    outputs as numpy arrays.  Candidacy is the intersection of two sound
+    gates:
+      * score: run_max >= floor(min_score * scale) - 1 (vacuous when
+        min_score <= 0, where any positive excursion can emit: >= 1);
+      * width: the run spans more than min_width positions.
+
+    pull_fn / nbases_dev: the pipeline's ``.pull`` and the genome on the
+    device.  Candidate blocks the top C missed are pulled in batches of C
+    blocks, one device gather each; without them such a miss returns
+    fallback=True.  A weight of -inf resets the replay's running score to
+    0, as in the sequential reference.
+    """
+    block_max, block_last = compose_summaries_exact(
+        out["tA"], out["tB"], out["maxA"], out["maxB"]
+    )
+    top_idx = np.asarray(out["top_idx"])
+    nb = block_max.shape[0]
+    linked = np.zeros(nb, bool)
+    linked[1:] = block_last[:-1] > 0
+    starts = np.nonzero(~linked)[0]
+    run_of = np.cumsum(~linked) - 1
+    run_max = np.maximum.reduceat(block_max, starts)[run_of]
+    run_nblocks = (np.diff(np.concatenate([starts, [nb]])))[run_of]
+    if min_score > 0:
+        thresh = np.floor(min_score * scale) - 1
+    else:
+        thresh = 1  # any positive excursion could emit
+    cand = (run_max >= thresh) & (run_nblocks * block > min_width)
+    if not cand.any():
+        return SpanPipelineResult(regions=[], fallback=False)
+    have = np.zeros(nb, bool)
+    have[top_idx] = True
+    pulled: dict[int, tuple] = {}
+    missing = np.nonzero(cand & ~have)[0]
+    if missing.size:
+        if pull_fn is None or nbases_dev is None:
+            return SpanPipelineResult(regions=[], fallback=True)
+        C = max(len(top_idx), 1)
+        for s in range(0, missing.size, C):
+            batch = missing[s:s + C]
+            idxp = np.full(C, batch[0], np.int64)
+            idxp[:batch.size] = batch
+            c_, s_ = pull_fn(nbases_dev, torch.from_numpy(idxp))
+            c_, s_ = c_.cpu().numpy(), s_.cpu().numpy()
+            for j, b in enumerate(batch):
+                pulled[int(b)] = (c_[j], s_[j])
+
+    pos_in_pull = {int(bidx): i for i, bidx in enumerate(top_idx)}
+    codes = np.asarray(out["codes"])
+    scored = np.asarray(out["scored"])
+    w64 = np.asarray(weights, dtype=np.float64) - threshold
+
+    def block_data(b):
+        if b in pulled:
+            return pulled[b]
+        i = pos_in_pull[b]
+        return codes[i], scored[i]
+
+    size = w64.shape[0]
+    regions = []
+    i = 0
+    while i < nb:
+        if not cand[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < nb and cand[j + 1]:
+            j += 1
+        pairs = [block_data(b) for b in range(i, j + 1)]
+        c_flat = np.concatenate([p[0] for p in pairs])
+        sc_flat = np.concatenate([p[1] for p in pairs])
+        s_flat = np.where(sc_flat, w64[c_flat], 0.0)
+        base_pos = i * block
+        visits = None
+        if scan_counts is not None:
+            visits = np.zeros(s_flat.shape[0] + 1, dtype=np.int64)
+        regs = extract_spans(s_flat, sc_flat, min_width, min_score,
+                             seq_id=seq_id, visits_full=visits)
+        regions.extend(
+            (sid, beg + base_pos, end + base_pos, sc)
+            for sid, beg, end, sc in regs
+        )
+        if scan_counts is not None:
+            # the device histogram counted every scored position once; add
+            # only the extra visits of jump-back rescans
+            rescans = np.where(sc_flat, np.cumsum(visits[:-1]) - 1, 0)
+            sel = rescans > 0
+            if sel.any():
+                scan_counts += np.bincount(
+                    c_flat[sel], weights=rescans[sel], minlength=size
+                ).astype(np.int64)
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)
 

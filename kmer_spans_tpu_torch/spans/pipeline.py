@@ -23,6 +23,13 @@ candidate blocks run-aware, and returns them with their codes and scored
 flags.  The host composes the summaries exactly and replays only
 candidate blocks in f64 (spans/finish.py finish_spans).
 
+The arbitrary-weight pipeline (``make_weight_span_pipeline``, with
+``quantize_weight_table``) is the device step of the api's exact path:
+kmer_regions, the default kmer_low_comp_regions and kmer_spans.  It
+screens with an int32 table quantized up from the caller's f64 weights
+and adds the scan histogram (K3); spans/finish.py finish_weight_spans
+replays its candidates from the f64 weights.
+
 Differences from the reference: ties in the top-C choice go to the lower
 block index through a stable descending sort (lax.top_k's rule;
 torch.topk promises none), and the summaries are composed exactly in
@@ -35,10 +42,12 @@ left out (the codes are the same either way).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops.blocked import (
+    block_rows_codes,
     blocked_codes,
     blocked_scan_summaries_int,
     blocked_scored,
@@ -257,4 +266,114 @@ def make_span_pipeline(
     fn.packed_bases = packed
     fn.packed_counts = packed_counts
     fn.screen = screen
+    return fn
+
+
+def quantize_weight_table(weights, threshold: float, block: int):
+    """Sound integer upper-bound screen table for arbitrary f64 weights.
+
+    Returns (w_q int32 [4^k], scale): w_q[c] / scale >= weights[c] -
+    threshold always (floor(s * scale) + 2 covers the f64 product's
+    rounding), with scale a power of two chosen from the largest finite
+    |s| so that within-block int32 sums cannot overflow (scale * max|s| *
+    block < 2^26).  For every finite table this is the reference's
+    quantize_weight_table (kmer_spans_tpu/spans/pipeline.py:579).
+
+    A weight of -inf (Log2MedianScoring's zero-count k-mers) takes
+    -(2^26 // block): any finite value bounds -inf from above, and a block
+    of such positions sums to about -2^26, inside int32.  In true units it
+    is below -max|s| (it resets the screen as -inf resets the scan).  The
+    reference takes max|s| over the whole table and fails there (ROADMAP
+    queue 3).  A weight of +inf or NaN has no sound finite bound: ValueError.
+    """
+    s = np.asarray(weights, dtype=np.float64) - threshold
+    neg_inf = np.isneginf(s)
+    if np.isnan(s).any() or np.isposinf(s).any():
+        raise ValueError("weights must be finite or -inf")
+    finite = s[~neg_inf]
+    maxabs = float(np.max(np.abs(finite))) if finite.size else 0.0
+    w_q = np.full(s.shape, -((1 << 26) // block), np.int32)
+    if maxabs <= 0.0:
+        w_q[~neg_inf] = 2
+        return w_q, 1.0
+    e = int(np.floor(np.log2((1 << 26) / (block * maxabs))))
+    e = max(min(e, 20), -40)
+    scale = 2.0 ** e
+    w_q[~neg_inf] = np.floor(finite * scale) + 2.0
+    return w_q, scale
+
+
+def make_weight_span_pipeline(
+    k: int,
+    block: int = 4096,
+    cand_blocks: int = 128,
+    with_scan_counts: bool = False,
+    device="cuda",
+):
+    """The device step of arbitrary-weight span calling (reference
+    make_weight_span_pipeline; src/kmer_spans.c:490-546).
+
+    fn(nbases uint8 [n], w_q int32 [4^k]) -> dict of the per-block integer
+    summaries (tA, tB, maxA, maxB int32 [nb]), the top-C candidate blocks
+    (top_idx int64, ascending) with their codes (int32, 0 where the k-mer
+    is invalid) and scored rows, and with ``with_scan_counts`` the scan
+    histogram (scan_hist int32 [4^k]: the codes at scored positions, K3).
+    nbases (tensor or numpy; moved to ``device``) encodes N as 4; n is a
+    multiple of ``block``.  The score is w_q[code], a plain torch gather
+    (the reference's is an XLA gather too); the summaries compose exactly
+    in int64 and the top C is run-aware, ties to the lower block index
+    (spans/pipeline.py _top_blocks).
+
+    ``fn.pull(nbases, idx)`` returns (codes, scored) of the blocks idx,
+    equal to those rows of the main call (ops/blocked.py
+    block_rows_codes): spans/finish.py finish_weight_spans pulls there the
+    candidate blocks the top C missed.
+    """
+    if not 1 <= k <= 15:
+        raise ValueError(f"k must be in [1, 15], got {k}")
+    size = 1 << (2 * k)
+    dev = resolve_device(device)
+
+    def _genome(nbases):
+        nbases = torch.as_tensor(nbases, device=dev)
+        if nbases.dtype != torch.uint8 or nbases.dim() != 1:
+            raise TypeError("nbases must be a 1-D uint8 array")
+        n = nbases.shape[0]
+        if n % block or n == 0:
+            raise ValueError(f"n={n} is not a positive multiple of {block}")
+        return nbases, n // block
+
+    def fn(nbases, w_q):
+        nbases, nb = _genome(nbases)
+        w_q = torch.as_tensor(w_q, device=dev)
+        if w_q.dtype != torch.int32 or tuple(w_q.shape) != (size,):
+            raise TypeError(f"w_q must be int32 [{size}]")
+        v2 = (nbases < 4).reshape(nb, block)
+        codes, kmer_valid = blocked_codes((nbases & 3).reshape(nb, block),
+                                          v2, k)
+        scored = blocked_scored(v2, kmer_valid)
+        codes = torch.where(kmer_valid, codes, 0)
+        del v2, kmer_valid
+        tA, tB, maxA, maxB = blocked_scan_summaries_int(w_q[codes], scored)
+        top_idx = _top_blocks(tA, tB, maxA, maxB, min(cand_blocks, nb))
+        out = {
+            "tA": tA,
+            "tB": tB,
+            "maxA": maxA,
+            "maxB": maxB,
+            "top_idx": top_idx,
+            "codes": codes[top_idx],
+            "scored": scored[top_idx],
+        }
+        if with_scan_counts:
+            out["scan_hist"] = histogram.histogram(
+                codes.reshape(-1), scored.reshape(-1), size)
+        return out
+
+    def pull(nbases, idx):
+        nbases, _ = _genome(nbases)
+        return block_rows_codes(nbases, torch.as_tensor(idx, device=dev), k,
+                                block)
+
+    fn.pull = pull
     return fn

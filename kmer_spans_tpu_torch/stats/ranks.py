@@ -1,7 +1,9 @@
-"""Reference-exact f64 chain ranks from integer rank mass (host).
+"""Spectrum statistics on the host: median frequency, integer rank mass,
+reference-exact f64 chain ranks from that mass.
 
-The port's own copy of ``chain_ranks_from_mass`` from
-``kmer_spans_tpu/stats/ranks.py``.
+The port's own copies of ``spectrum_median_freq``, ``cumulative_mass`` and
+``chain_ranks_from_mass`` from ``kmer_spans_tpu/stats/ranks.py``; the
+weighted ranks themselves are ``oracle.weighted_ranks``.
 """
 
 from __future__ import annotations
@@ -9,6 +11,38 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils import native
+
+
+def spectrum_median_freq(counts: np.ndarray) -> float:
+    """Median k-mer frequency over *counted positions* (for log2(f/f_med)).
+
+    The median over k-mer instances (each counted position contributes its
+    k-mer's frequency), i.e. the weighted median of the spectrum.
+    """
+    counts = np.asarray(counts, dtype=np.int64)
+    total = counts.sum()
+    if total == 0:
+        return 0.0
+    order = np.argsort(counts, kind="stable")
+    cum = np.cumsum(counts[order])
+    # first sorted position where cumulative mass reaches half
+    half = (total + 1) // 2
+    idx = int(np.searchsorted(cum, half))
+    return counts[order[idx]] / total
+
+
+def cumulative_mass(counts: np.ndarray) -> np.ndarray:
+    """Integer rank numerators: rank[kmer] * total, exactly (int64).
+
+    rank[kmer] = cumulative_mass[kmer] / total, with the spectrum sorted
+    stably by count (ties by k-mer index).
+    """
+    counts = np.asarray(counts, dtype=np.int64)
+    order = np.argsort(counts, kind="stable")
+    sorted_mass = np.concatenate([[0], np.cumsum(counts[order][:-1])])
+    mass = np.empty_like(sorted_mass)
+    mass[order] = sorted_mass
+    return mass
 
 
 def chain_ranks_from_mass(

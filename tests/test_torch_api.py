@@ -27,7 +27,7 @@ def _same_result(got, want):
 
 def test_golden_three_regions_equal_jax_fast(golden):
     got = api.kmer_low_comp_regions(golden, 8, 100, 20.0, thr=0.75,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     regs = got.regions
     assert list(regs["beg"]) == [20008, 50008, 80007]
     assert list(regs["end"]) == [20600, 50900, 80400]
@@ -47,7 +47,8 @@ def test_multi_sequence_equal_jax_fast(k):
         s[1000:1600] = "CAG" * 200
         seqs.append("".join(s))
     seqs.insert(2, "ACG")  # shorter than k: skipped, keeps its seq_id
-    got = api.kmer_low_comp_regions(seqs, k, 50, 8.0, thr=0.7, device="cpu")
+    got = api.kmer_low_comp_regions(seqs, k, 50, 8.0, thr=0.7, mode="fast",
+                                    device="cpu")
     want = ref_api.kmer_low_comp_regions(seqs, k, 50, 8.0, thr=0.7,
                                          backend="jax", mode="fast")
     _same_result(got, want)
@@ -100,19 +101,28 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 
 def test_unported_modes_raise(golden):
-    # k = 2 and 9 now run (the class screen); mode="exact" does not yet
+    # k = 2 and 9 run in both modes; mode="exact" (the default) runs too,
+    # and equals the reference's exact device path
     for k in (2, 9):
-        got = api.kmer_low_comp_regions(golden[:30_000], k, 100, 20.0,
-                                        device="cpu")
-        assert got.counts.shape == (1 << (2 * k),)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        api.kmer_low_comp_regions(golden, 8, 100, 20.0, mode="exact",
-                                  device="cpu")
-    for k in (1, 16):
+        for mode in ("fast", "exact"):
+            got = api.kmer_low_comp_regions(golden[:30_000], k, 100, 20.0,
+                                            mode=mode, device="cpu")
+            assert got.counts.shape == (1 << (2 * k),)
+    got = api.kmer_low_comp_regions(golden, 8, 100, 20.0, mode="exact",
+                                    device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden, 8, 100, 20.0, mode="exact",
+                                         backend="jax")
+    _same_result(got, want)
+    for mode in ("fast", "exact"):
+        for k in (0, 16):
+            with pytest.raises(ValueError):
+                api.kmer_low_comp_regions(golden, k, 100, 20.0, mode=mode,
+                                          device="cpu")
         with pytest.raises(ValueError):
-            api.kmer_low_comp_regions(golden, k, 100, 20.0, device="cpu")
+            api.kmer_low_comp_regions(golden, 8, 100, 20.0, thr=1.5,
+                                      mode=mode, device="cpu")
     with pytest.raises(ValueError):
-        api.kmer_low_comp_regions(golden, 8, 100, 20.0, thr=1.5,
+        api.kmer_low_comp_regions(golden, 1, 100, 20.0, mode="fast",
                                   device="cpu")
 
 
@@ -121,7 +131,7 @@ def test_class_screen_k_equal_jax_fast_and_host(golden, k):
     """k = 9 and k = 3 go through the non-fused class screen (K3, K4)."""
     thr = 0.75 if k == 9 else 0.8
     got = api.kmer_low_comp_regions(golden, k, 100, 20.0, thr=thr,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     want = ref_api.kmer_low_comp_regions(golden, k, 100, 20.0, thr=thr,
                                          backend="jax", mode="fast")
     _same_result(got, want)
@@ -134,7 +144,13 @@ def test_class_screen_k_equal_jax_fast_and_host(golden, k):
 def test_k1_fails_in_both_packages(golden):
     with pytest.raises(ValueError, match="k >= 2"):
         api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,
-                                  device="cpu")
+                                  mode="fast", device="cpu")
+    # the exact path (the default) serves k = 1 in both
+    got = api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,
+                                    thr=0.5, device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,
+                                         thr=0.5, backend="jax")
+    _same_result(got, want)
     # the reference's class table cannot pack 4^1 ranks 8 a word either
     with pytest.raises(TypeError, match="reshape"):
         ref_api.kmer_low_comp_regions(golden[:20_000], 1, 100, 20.0,

@@ -142,8 +142,10 @@ def test_pipeline_kernels_match_plain_versions(card, packed, monkeypatch):
 
 def test_api_on_card_equals_cpu(card):
     seq = golden_genome()
-    got = api.kmer_low_comp_regions(seq, 8, 100, 20.0, device=card)
-    want = api.kmer_low_comp_regions(seq, 8, 100, 20.0, device="cpu")
+    got = api.kmer_low_comp_regions(seq, 8, 100, 20.0, mode="fast",
+                                    device=card)
+    want = api.kmer_low_comp_regions(seq, 8, 100, 20.0, mode="fast",
+                                     device="cpu")
     assert len(got.regions) == 3
     assert np.array_equal(got.regions, want.regions)
     assert np.array_equal(got.counts, want.counts)
@@ -167,7 +169,7 @@ def test_api_overflow_reruns_on_card(card, monkeypatch):
 
 @pytest.mark.parametrize("size", [1, 100, 256, 4096, 1 << 15, (1 << 15) + 1,
                                   65536, 1 << 18, (1 << 18) + 1, 1 << 19,
-                                  1 << 20])
+                                  1 << 20, 1 << 24])
 def test_histogram_kernel_matches_plain(card, size):
     rng = np.random.default_rng(size)
     n = (1 << 20) + 3
@@ -182,12 +184,35 @@ def test_histogram_kernel_matches_plain(card, size):
         got = histogram.histogram(*args, size)
         torch.cuda.synchronize()
         assert torch.equal(got, histogram_plain(*args, size))
-        for cluster in (True, False):  # both forms, whatever the rule
+        for form in histogram.FORMS:  # every form, whatever the rule
             assert torch.equal(histogram.histogram_kernel(*args, size,
-                                                          cluster),
+                                                          form),
                                histogram_plain(*args, size))
     assert not histogram.histogram(x, torch.zeros_like(m), size).any()
     assert histogram.histogram_launches == before + 5
+
+
+@pytest.mark.parametrize("size", [1 << 20, 1 << 24])  # 4^10 and 4^12
+def test_histogram_global_form_on_runs_of_equal_values(card, size):
+    """Whole warps of one value, two values interleaved, a value at each
+    end of the range, runs broken by invalid positions: one atomic per
+    distinct value of a warp must still count every position."""
+    rng = np.random.default_rng(size)
+    n = (1 << 22) + 7
+    values = rng.integers(0, size, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    values[1000:1000 + (1 << 20)] = 5                  # one value
+    values[2_000_000:2_100_000:2] = size - 1           # two interleaved
+    values[2_000_001:2_100_000:2] = 0
+    valid[1000:1000 + (1 << 20)] = True
+    valid[1500:1700] = False                           # a run broken
+    values[3_000_000:3_000_100] = -2                   # out of range
+    x, m = to_tensor(values, card), to_tensor(valid, card)
+    for args in ((x, m), (x[1:], m[1:]), (x[3:], m[:-3])):
+        got = histogram.histogram_kernel(*args, size, "global")
+        torch.cuda.synchronize()
+        assert torch.equal(got, histogram_plain(*args, size))
+    assert histogram.histogram_form(size) == "global"
 
 
 def test_histogram_refuses_what_the_kernel_does_not_take(card):
@@ -199,6 +224,8 @@ def test_histogram_refuses_what_the_kernel_does_not_take(card):
         histogram.histogram(x, m.cpu(), 10)
     with pytest.raises(TypeError):
         histogram.histogram(x, m.to(torch.uint8), 10)
+    with pytest.raises(ValueError):
+        histogram.histogram_kernel(x, m, 10, "shared")
 
 
 @pytest.mark.parametrize("k", [12, 13, 15])
@@ -218,8 +245,10 @@ def test_pm_pipeline_kernel_matches_plain(card, k, monkeypatch):
 def test_api_k12_on_card_equals_cpu(card, monkeypatch):
     monkeypatch.setattr(api, "exact_fallbacks", 0)
     seq = golden_genome()
-    got = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device=card)
-    want = api.kmer_low_comp_regions(seq, 12, 100, 20.0, device="cpu")
+    got = api.kmer_low_comp_regions(seq, 12, 100, 20.0, mode="fast",
+                                    device=card)
+    want = api.kmer_low_comp_regions(seq, 12, 100, 20.0, mode="fast",
+                                     device="cpu")
     assert len(got.regions) == 3 and api.exact_fallbacks == 0
     assert np.array_equal(got.regions, want.regions)
     assert np.array_equal(got.counts, want.counts)
@@ -276,8 +305,87 @@ def test_class_and_sort_pipelines_match_plain(card, k, launches,
 def test_api_k9_on_card_equals_cpu(card, monkeypatch):
     monkeypatch.setattr(api, "exact_fallbacks", 0)
     seq = golden_genome()
-    got = api.kmer_low_comp_regions(seq, 9, 100, 20.0, device=card)
-    want = api.kmer_low_comp_regions(seq, 9, 100, 20.0, device="cpu")
+    got = api.kmer_low_comp_regions(seq, 9, 100, 20.0, mode="fast",
+                                    device=card)
+    want = api.kmer_low_comp_regions(seq, 9, 100, 20.0, mode="fast",
+                                     device="cpu")
     assert len(got.regions) == 3 and api.exact_fallbacks == 0
     assert np.array_equal(got.regions, want.regions)
     assert np.array_equal(got.counts, want.counts)
+
+
+# ------------------------------------------------------- the exact api path
+
+def _exact_genome(seed, n=300_000):
+    rng = np.random.default_rng(seed)
+    arr = rng.integers(0, 4, n).astype(np.uint8)
+    arr[rng.random(n) < 0.001] = 4
+    arr[40_000:43_000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    arr[200_000:201_200] = np.tile(np.array([1, 0, 3], np.uint8), 400)
+    return "".join("ACTGN"[b] for b in arr)  # the 2-bit order
+
+
+@pytest.mark.parametrize("k", [2, 8, 12])
+def test_weight_pipeline_kernel_matches_plain(card, k, monkeypatch):
+    """The device step of the exact path: K3 makes the scan histogram."""
+    from kmer_spans_tpu_torch.spans.pipeline import (
+        make_weight_span_pipeline,
+        quantize_weight_table,
+    )
+
+    rng = np.random.default_rng(k)
+    arr = _planted(k)
+    w_q, _ = quantize_weight_table(rng.normal(-0.2, 1.0, 1 << (2 * k)), 0.0,
+                                   4096)
+    fn = make_weight_span_pipeline(k, cand_blocks=16, with_scan_counts=True,
+                                   device=card)
+    before = histogram.histogram_launches
+    got = fn(arr, w_q)
+    assert histogram.histogram_launches == before + 1
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    want = fn(arr, w_q)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    idx = torch.tensor([0, 5, arr.size // 4096 - 1], device=card)
+    for g, w in zip(fn.pull(arr, idx), make_weight_span_pipeline(
+            k, device="cpu").pull(arr, idx.cpu())):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("k", [8, 12])
+def test_exact_api_on_card_equals_cpu(card, k):
+    seq = _exact_genome(k)
+    before = histogram.histogram_launches
+    got = api.kmer_counts(seq, k, device=card)
+    assert histogram.histogram_launches == before + 1
+    want = api.kmer_counts(seq, k, device="cpu")
+    assert got.n == want.n and np.array_equal(got.counts, want.counts)
+    got = api.kmer_low_comp_regions(seq, k, 100, 20.0, device=card)
+    want = api.kmer_low_comp_regions(seq, k, 100, 20.0, device="cpu")
+    assert len(got.regions) >= 2
+    for f in ("n", "counts", "regions", "w_rank"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("min_score", [20.0, -1.0])
+def test_kmer_regions_on_card_equals_cpu(card, min_score):
+    """min_score <= 0 pulls the candidate blocks the top C missed."""
+    from kmer_spans_tpu_torch.encoding import all_kmers
+
+    seq = _exact_genome(3, n=1_200_000)
+    w = np.array([1.5 if "AGAG" in km or "CAGC" in km else -0.4
+                  for km in all_kmers(8)])
+    got = api.kmer_regions(seq, 8, w, 100, min_score, device=card)
+    want = api.kmer_regions(seq, 8, w, 100, min_score, device="cpu")
+    assert len(got.regions) >= 2
+    for f in ("n", "counts", "regions"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("scoring", ["threshold", "log2_median"])
+def test_kmer_spans_on_card_equals_cpu(card, scoring):
+    seq = golden_genome()
+    got = api.kmer_spans(seq, 8, scoring=scoring, device=card)
+    want = api.kmer_spans(seq, 8, scoring=scoring, device="cpu")
+    for f in ("n", "counts", "regions"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f

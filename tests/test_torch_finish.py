@@ -51,9 +51,12 @@ def _packed_vector(k, seed, block=1024, cand=16):
 
 
 def test_host_rank_mass():
+    """The reference's host_rank_mass is the port's cumulative_mass."""
+    from kmer_spans_tpu_torch.stats.ranks import cumulative_mass
+
     rng = np.random.default_rng(0)
     counts = rng.integers(0, 9, 4096)
-    assert np.array_equal(finish.host_rank_mass(counts),
+    assert np.array_equal(cumulative_mass(counts),
                           ref.host_rank_mass(counts))
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package.
 
 kmer_spans_tpu_torch keeps its own copies of the host code it needs
-(encoding, oracle, stats.ranks, spans.extract and the host C++ library
-behind utils.native).  This file holds that no module of the port, nor
+(encoding, oracle, stats.ranks, models.scoring, io, spans.extract and the
+host C++ library behind utils.native).  This file holds that no module of the port, nor
 chip_smoke.py, imports jax or kmer_spans_tpu, and that every copy gives
 what its original gives on the same seeded inputs.  The host library is
 held against the reference's numpy paths (the oracle, ``kmer_codes_np``,
@@ -24,10 +24,15 @@ import pytest
 from kmer_spans_tpu import api as ref_api
 from kmer_spans_tpu import encoding as ref_encoding
 from kmer_spans_tpu import oracle as ref_oracle
+from kmer_spans_tpu.io import fasta as ref_fasta
+from kmer_spans_tpu.io import spectrum_file as ref_spectrum_file
+from kmer_spans_tpu.models import scoring as ref_scoring
 from kmer_spans_tpu.spans import extract as ref_extract
 from kmer_spans_tpu.stats import ranks as ref_ranks
 from kmer_spans_tpu.utils import testgen as ref_testgen
 from kmer_spans_tpu_torch import api, encoding, oracle
+from kmer_spans_tpu_torch.io import fasta, spectrum_file
+from kmer_spans_tpu_torch.models import scoring
 from kmer_spans_tpu_torch.spans import extract
 from kmer_spans_tpu_torch.stats import ranks
 from kmer_spans_tpu_torch.utils import native
@@ -193,6 +198,118 @@ def test_extract_spans_equals_the_reference(seed):
     assert np.array_equal(v_got, v_want)
 
 
+def test_kmer_strings_equal_the_reference():
+    for k in (1, 4, 7):
+        assert encoding.all_kmers(k) == ref_encoding.all_kmers(k)
+    for km in ("A", "ACGT", "TTGCA", "gattaca", "GGGGGGGGGGGGGGG"):
+        assert encoding.kmer_to_code(km) == ref_encoding.kmer_to_code(km)
+    with pytest.raises(ValueError):
+        encoding.all_kmers(16)
+
+
+def _spectra():
+    rng = np.random.default_rng(21)
+    counts = rng.poisson(1.2, 1 << 10).astype(np.int64)
+    counts[rng.integers(0, 1 << 10, 8)] = rng.integers(100, 5000, 8)
+    return {"random": counts, "zeros": np.zeros(256, np.int64),
+            "one": np.eye(1, 64, 17, dtype=np.int64)[0] * 9}
+
+
+@pytest.mark.parametrize("which", ["random", "zeros", "one"])
+def test_spectrum_stats_equal_the_reference(which):
+    counts = _spectra()[which]
+    assert ranks.spectrum_median_freq(counts) == \
+        ref_ranks.spectrum_median_freq(counts)
+    got, want = ranks.cumulative_mass(counts), ref_ranks.cumulative_mass(
+        counts)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["random", "zeros", "one"])
+def test_scoring_models_equal_the_reference(which):
+    counts = _spectra()[which]
+    total = float(counts.sum())
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=counts.size)
+    pairs = [
+        (scoring.WeightScoring(w), ref_scoring.WeightScoring(w)),
+        (scoring.ThresholdScoring(counts, 0.001),
+         ref_scoring.ThresholdScoring(counts, 0.001)),
+        (scoring.Log2MedianScoring(counts),
+         ref_scoring.Log2MedianScoring(counts)),
+    ]
+    if total:
+        pairs.append((scoring.RankScoring(counts, total, 0.7),
+                      ref_scoring.RankScoring(counts, total, 0.7)))
+    codes = rng.integers(0, counts.size, 50)
+    for got, want in pairs:
+        assert got.threshold == want.threshold
+        assert got.weights.dtype == want.weights.dtype == np.float64
+        assert np.array_equal(got.weights.view(np.int64),
+                              want.weights.view(np.int64))  # -inf too
+        assert np.array_equal(got.scores_for(codes), want.scores_for(codes))
+    with pytest.raises(ValueError):
+        scoring.RankScoring(counts, total, 1.0)
+
+
+def test_io_copies_equal_the_reference(tmp_path):
+    import gzip
+
+    records = [("chr1", "ACGTN" * 50 + "ac"), ("s2", b"GGGATTACA"),
+               ("empty", "")]
+    fasta.write_fasta(tmp_path / "a.fa", records, width=7)
+    ref_fasta.write_fasta(tmp_path / "b.fa", records, width=7)
+    raw = (tmp_path / "a.fa").read_bytes()
+    assert raw == (tmp_path / "b.fa").read_bytes()
+    (tmp_path / "c.fa.gz").write_bytes(gzip.compress(
+        b"; comment\n" + raw.replace(b"\n", b"\r\n")))
+    for name in ("a.fa", "c.fa.gz"):
+        path = str(tmp_path / name)
+        assert fasta.read_fasta(path) == ref_fasta.read_fasta(path)
+        got = fasta.read_fasta_packed(path, min_len=5)
+        want = ref_fasta.read_fasta_packed(path, min_len=5)
+        assert [n for n, _ in got] == [n for n, _ in want] == ["chr1", "s2"]
+        for (_, g), (_, w) in zip(got, want):
+            assert np.array_equal(g.bases, w.bases)
+            assert np.array_equal(g.valid, w.valid)
+    spectra = [np.arange(16), np.zeros(256, np.int64) + 7]
+    spectrum_file.write_kmers(tmp_path / "x.bin", spectra)
+    ref_spectrum_file.write_kmers(tmp_path / "y.bin", spectra)
+    assert (tmp_path / "x.bin").read_bytes() == \
+        (tmp_path / "y.bin").read_bytes()
+    got = spectrum_file.read_kmers(tmp_path / "y.bin")
+    want = ref_spectrum_file.read_kmers(tmp_path / "x.bin")
+    assert got["k"] == want["k"] == [2, 4]
+    for g, w in zip(got["counts"], want["counts"]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert spectrum_file.KMER_MAGIC == ref_spectrum_file.KMER_MAGIC
+    (tmp_path / "bad.bin").write_bytes(b"\x01" * 12)
+    assert spectrum_file.read_kmers(tmp_path / "bad.bin") is None
+    with pytest.raises(OverflowError):
+        spectrum_file.write_kmers(tmp_path / "z.bin", [np.array([1 << 31])])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_extract_spans_takes_neg_inf(seed):
+    """A -inf score resets the running score to 0, as in the sequential
+    oracle (k = 1: one score a base, -inf at every T)."""
+    rng = np.random.default_rng(seed)
+    seq = list(random_seq(rng, 20_000, n_prob=0.002))
+    seq[3000:3600] = "AC" * 300
+    seq[3300] = "T"
+    seq[9000:9900] = "CCA" * 300
+    seq = "".join(seq)
+    w = np.array([0.6, 0.5, -np.inf, -0.9])  # A, C, T, G
+    want = ref_oracle.find_regions(seq, 2, 10, 4.0, w, 1, 0.0)
+    p = encoding.pack(seq)
+    scored = p.valid.copy()  # the last base of an N-free stretch is not
+    scored[:-1] &= p.valid[1:]
+    scored[-1] = False
+    s = np.where(scored, w[p.bases], 0.0)
+    got = extract.extract_spans(s, scored, 10, 4.0, seq_id=2)
+    assert got == want and len(want) >= 3
+
+
 def test_region_result_matches_the_reference(golden):
     assert [f.name for f in dataclasses.fields(api.RegionResult)] == \
         [f.name for f in dataclasses.fields(ref_api.RegionResult)]
@@ -204,11 +321,14 @@ def test_region_result_matches_the_reference(golden):
     for g, w in zip(api._as_seq_list(seqs), ref_api._as_seq_list(seqs)):
         assert np.array_equal(g.bases, w.bases)
         assert np.array_equal(g.valid, w.valid)
-    got = api.kmer_low_comp_regions(golden, 8, 100, 20.0, device="cpu")
-    want = ref_api.kmer_low_comp_regions(golden, 8, 100, 20.0,
-                                         backend="jax", mode="fast")
-    for f in dataclasses.fields(ref_api.RegionResult):
-        assert np.array_equal(getattr(got, f.name), getattr(want, f.name))
+    for mode in ("fast", "exact"):
+        got = api.kmer_low_comp_regions(golden, 8, 100, 20.0, mode=mode,
+                                        device="cpu")
+        want = ref_api.kmer_low_comp_regions(golden, 8, 100, 20.0,
+                                             backend="jax", mode=mode)
+        for f in dataclasses.fields(ref_api.RegionResult):
+            assert np.array_equal(getattr(got, f.name),
+                                  getattr(want, f.name))
 
 
 # ------------------------------------------------------- the host library

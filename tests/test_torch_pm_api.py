@@ -2,7 +2,6 @@
 package's fast mode and the sequential oracle."""
 
 import numpy as np
-import pytest
 import torch
 
 from kmer_spans_tpu import api as ref_api
@@ -39,7 +38,7 @@ def _regions(res):
 def test_golden_k12_equals_jax_fast_and_oracle(golden, monkeypatch):
     calls = _spy(monkeypatch)
     got = api.kmer_low_comp_regions(golden, 12, 100, 20.0, thr=0.75,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     assert len(calls) == 1 and api.exact_fallbacks == 0
     want = ref_api.kmer_low_comp_regions(golden, 12, 100, 20.0, thr=0.75,
                                          backend="jax", mode="fast")
@@ -58,7 +57,7 @@ def test_multi_sequence_k10_equals_jax_fast():
         seqs.append("".join(s))
     seqs.insert(1, "ACGTACG")  # shorter than k: skipped, keeps its seq_id
     got = api.kmer_low_comp_regions(seqs, 10, 50, 8.0, thr=0.7,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     want = ref_api.kmer_low_comp_regions(seqs, 10, 50, 8.0, thr=0.7,
                                          backend="jax", mode="fast")
     _same_result(got, want)
@@ -79,7 +78,7 @@ def test_packed_retry_on_smallv_overflow(monkeypatch):
     calls = _spy(monkeypatch, first_cap=2)
     seq = _island_seq(21)
     got = api.kmer_low_comp_regions(seq, 13, 30, 5.0, thr=0.75,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     assert [c[0] for c in calls] == [None, "packed"]
     assert api.exact_fallbacks == 0
     exact = ref_api.kmer_low_comp_regions(seq, 13, 30, 5.0, thr=0.75,
@@ -93,7 +92,7 @@ def test_list_overflow_reruns_on_the_device(monkeypatch):
     calls = _spy(monkeypatch, first_cap=2)
     seq = _island_seq(22)
     got = api.kmer_low_comp_regions(seq, 12, 30, 5.0, thr=0.75,
-                                    device="cpu")
+                                    mode="fast", device="cpu")
     assert [c[0] for c in calls] == [None, None]
     assert calls[1][1] > 2 and calls[1][1] & (calls[1][1] - 1) == 0
     assert api.exact_fallbacks == 1
@@ -117,12 +116,15 @@ def test_candidate_miss_reruns_on_the_device(monkeypatch):
 
 
 def test_k9_raises_naming_its_queue_item(golden):
-    # k = 9 now runs (the class screen, between the two pipelines); the
-    # device form of mode="exact" is what still raises, naming its item
-    got = api.kmer_low_comp_regions(golden, 9, 100, 20.0, device="cpu")
+    # k = 9 runs in both modes: the class screen (between the two
+    # pipelines) in fast mode, and the device form of mode="exact", which
+    # no longer raises, each equal to the reference's same mode
+    got = api.kmer_low_comp_regions(golden, 9, 100, 20.0, mode="fast",
+                                    device="cpu")
     want = ref_api.kmer_low_comp_regions(golden, 9, 100, 20.0, thr=0.75,
                                          backend="jax", mode="fast")
     _same_result(got, want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        api.kmer_low_comp_regions(golden, 9, 100, 20.0, mode="exact",
-                                  device="cpu")
+    got = api.kmer_low_comp_regions(golden, 9, 100, 20.0, device="cpu")
+    want = ref_api.kmer_low_comp_regions(golden, 9, 100, 20.0, thr=0.75,
+                                         backend="jax", mode="exact")
+    _same_result(got, want)

@@ -178,6 +178,20 @@ def test_histogram_form_rule_at_the_main_paths_shapes():
     assert not histogram.cluster_form(256)      # the pm value histogram
 
 
+@pytest.mark.parametrize("size,form", [
+    (1, "sliced"), (1 << 15, "sliced"),             # one CTA's counters
+    ((1 << 15) + 1, "cluster"), (1 << 16, "cluster"),
+    ((1 << 16) + 1, "sliced"), (1 << 18, "sliced"),  # the 4^9 spectrum
+    ((1 << 18) + 1, "global"), (1 << 20, "global"),  # 4^10 and up
+    (1 << 24, "global"), (1 << 30, "global"),
+])
+def test_histogram_three_way_rule(size, form):
+    """Where K3 takes its global form: above the sizes of its
+    shared-memory forms' crossover, measured on the card."""
+    assert histogram.histogram_form(size) == form
+    assert (form == "cluster") is histogram.cluster_form(size)
+
+
 @pytest.mark.parametrize("bad", ["strided values", "strided valid",
                                  "size 2^31", "size -1", "devices differ"])
 def test_histogram_refuses_what_the_kernel_does_not_take(bad):
@@ -199,7 +213,7 @@ def test_histogram_refuses_what_the_kernel_does_not_take(bad):
         with pytest.raises(ValueError):
             fn(v, m, size)
     with pytest.raises(ValueError):
-        histogram.histogram_kernel(v, m, size, True)
+        histogram.histogram_kernel(v, m, size, "cluster")
     assert histogram.histogram_launches == before
 
 
@@ -208,9 +222,9 @@ def test_histogram_kernel_refuses_cpu_tensors():
     runs only on CUDA tensors and raises for anything else."""
     v = torch.arange(64, dtype=torch.int32)
     m = torch.ones(64, dtype=torch.bool)
-    for cluster in (True, False):
+    for form in histogram.FORMS:
         with pytest.raises(ValueError, match="unsupported device"):
-            histogram.histogram_kernel(v, m, 100, cluster)
+            histogram.histogram_kernel(v, m, 100, form)
     got = histogram.histogram(v.reshape(8, 8), m.reshape(8, 8), 100)
     assert torch.equal(got, histogram_plain(v, m, 100))
 
