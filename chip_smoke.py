@@ -41,9 +41,11 @@ Run from the repository root.  Phases, each of which raises on failure:
      histogram at the k = 9 count (4^9 bins, every form), the k = 13 pm
      screen's run lengths (256 bins), the k = 12 sort screen's two run
      histograms (65536 bins each, every form), and the exact path's 4^8,
-     4^10 and 4^12 spectra and k = 8 scan histogram (every form), and the
-     class gather's k = 9 codes (32768 words) and k = 12 sort-screen
-     entries (16384 words);
+     4^10 and 4^12 spectra and k = 8 scan histogram (every form), the
+     window path's count histograms (16 dimers, window 200: 3328 bins,
+     and 154 scaffolds' 154 * 3232 bins, every form, beside the mask they
+     need), and the class gather's k = 9 codes (32768 words) and k = 12
+     sort-screen entries (16384 words);
   7. the full-size k >= 10 path on the same genome, for k = 12 (packed
      key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
      unpack_pm_outputs -> finish_pm_spans, launch counts read around each
@@ -65,7 +67,20 @@ Run from the repository root.  Phases, each of which raises on failure:
      min_score 20 and 0 (the second pulls candidate blocks in batches);
      launch counts read around each kernels' run; each run's wall time,
      count, device step, pull, host finish, batched pulls and peak memory
-     logged.
+     logged;
+ 10. windowed distributions on the same genome, each call with the
+     kernels and again with the plain versions, the two equal:
+     api.window_kmer_dist with the 16 dimers, window 200, over the whole
+     genome and (ret_flag=1, the int64 positions matrix) its first 48 Mb;
+     the 154-scaffold cohort (bench.py's lengths) per scaffold
+     (api.kmer_counts k = 1 and api.window_kmer_dist) and in one
+     windowed_counts_device(seg2d=...) call, equal to the per-scaffold
+     dists; K3's launches counted, staging and chunk device time logged;
+ 11. api.lr_regions on the same genome at min_length 100, k = 2 and 8,
+     with the kernels and with the plain versions (equal), every planted
+     island called, the pull batches counted, the stages (staging,
+     summaries, runstats, pulls, host replay) timed, and the first 2^20
+     bases equal to the sequential oracle, positions and f64 scores.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -387,10 +402,12 @@ def time_kernels(dev, nbases_dev) -> dict:
     return out
 
 
-def hist_entry(label: str, values, valid, size: int) -> dict:
+def hist_entry(label: str, values, valid, size: int, more=()) -> dict:
     """Phase 6, K3 at one shape: the wrapper (with its form rule), each
-    form above 2^15 bins, the plain version and bincount on the input
-    already masked, in turns; the bound; max |err| against plain."""
+    form (above 2^15 bins, or all of them with ``more``), the plain
+    version and bincount on the input already masked, in turns, with
+    ``more`` (name, fn) timed beside them; the bound; max |err| against
+    plain."""
     import torch
 
     from kmer_spans_tpu_torch.ops import histogram as hist
@@ -398,13 +415,14 @@ def hist_entry(label: str, values, valid, size: int) -> dict:
     want = hist.histogram_plain(values, valid, size)
     err = max_abs_err(hist.histogram(values, valid, size), want)
     extra = ()
-    if size > hist.SLICE_BINS:
+    if size > hist.SLICE_BINS or more:
         extra = tuple(
             (f"{form}_ms", lambda form=form: hist.histogram_kernel(
                 values, valid, size, form))
             for form in hist.FORMS)
         for _, f in extra:
             err = max(err, max_abs_err(f(), want))
+    extra += tuple(more)
     if err:
         raise AssertionError(f"histogram differs from plain at {label}: "
                              f"max |err| {err}")
@@ -528,6 +546,97 @@ def time_spectra(dev, nbases_dev) -> list:
                                   1 << 16))
             del scored, masked
         del codes, kv
+    return out
+
+
+def cohort(nbases: np.ndarray, seed: int = 3):
+    """The reference's mclapply workload (test.R:553-567): 154 scaffolds
+    with bench.py's power-law lengths (multiples of 65536, about
+    len(nbases) bases in all), consecutive slices of the genome.
+
+    Returns (scaffolds, cat, seg): the slices, their concatenation with
+    single-N separators padded with N to a multiple of BLOCK, and each
+    position's scaffold id (int32)."""
+    n = nbases.shape[0]
+    rng = np.random.default_rng(seed)
+    raw = np.sort(rng.pareto(1.2, size=154) + 0.05)[::-1]
+    lengths = np.maximum(
+        (raw / raw.sum() * n / 65536).astype(np.int64), 1) * 65536
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    if starts[-1] + lengths[-1] > n:
+        raise ValueError("the cohort is longer than the genome")
+    scaffolds = [nbases[s:s + L] for s, L in zip(starts, lengths)]
+    total = int(lengths.sum()) + len(lengths) - 1
+    cat = np.full(-(-total // BLOCK) * BLOCK, 4, np.uint8)
+    seg = np.full(cat.shape[0], len(lengths) - 1, np.int32)
+    pos = 0
+    for i, s in enumerate(scaffolds):
+        cat[pos:pos + s.shape[0]] = s
+        seg[pos:pos + s.shape[0] + 1] = i
+        pos += s.shape[0] + 1
+    return scaffolds, cat, seg
+
+
+def cohort_counts_inputs(dev, cat: np.ndarray, seg: np.ndarray):
+    """The cohort on the card: codes, k-mer validity and validity of its
+    dimers ([nb, BLOCK]), and the scaffold ids."""
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.convert import to_tensor
+
+    x = to_tensor(cat, dev)
+    b2, v2 = (x & 3).reshape(-1, BLOCK), (x < 4).reshape(-1, BLOCK)
+    codes, kv = blocked_codes(b2, v2, 2)
+    return codes, kv, v2, to_tensor(seg, dev).reshape(-1, BLOCK)
+
+
+def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
+    """Phase 6, K3 at the window path's shapes: the histogram of the 16
+    dimers' counts over the first chunk's 2^22 window starts (window 200,
+    3328 bins) and over the 154-scaffold cohort's first group of 2^22
+    starts (154 * 3232 bins), each beside the mask it needs (the window
+    validity made contiguous over the 16 rows).  Also logs the device
+    time of a chunk's other stages at that shape."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.window import (
+        GROUP,
+        dist_values,
+        window_group,
+    )
+
+    tracked = torch.arange(16, dtype=torch.int32, device=dev)
+    x = nbases_dev[:GROUP + BLOCK]
+    b2, v2 = (x & 3).reshape(-1, BLOCK), (x < 4).reshape(-1, BLOCK)
+    codes, kv = blocked_codes(b2, v2, 2)
+    v = (x < 4)
+    cnt, wv = window_group(codes.reshape(-1), kv.reshape(-1), v, tracked, 2,
+                           200, 0, GROUP)
+    stages = {
+        "codes": lambda: blocked_codes(b2, v2, 2),
+        "counts and validity": lambda: window_group(
+            codes.reshape(-1), kv.reshape(-1), v, tracked, 2, 200, 0, GROUP),
+        "K3 input with its mask": lambda: dist_values(cnt, wv, 200)}
+    log("  window chunk stages (2^22 starts, 16 dimers), ms: " + ", ".join(
+        f"{name} {time_ms(fn, 3):.3f}" for name, fn in stages.items()))
+    out = []
+    values, valid, size = dist_values(cnt, wv, 200)
+    out.append(hist_entry(
+        "window counts, 16 dimers, w = 200, 2^22 starts", values, valid,
+        size, more=(("mask_ms", lambda: wv[None, :].expand(
+            16, -1).contiguous()),)))
+    del b2, v2, codes, kv, v, cnt, wv, values, valid
+    _, cat, seg = cohort(nbases)
+    codes, kv, v2, seg2 = cohort_counts_inputs(
+        dev, cat[:GROUP + BLOCK], seg[:GROUP + BLOCK])
+    cnt, wv = window_group(codes.reshape(-1), kv.reshape(-1),
+                           v2.reshape(-1), tracked, 2, 200, 0, GROUP)
+    values, valid, size = dist_values(cnt, wv, 200,
+                                      seg2.reshape(-1)[:GROUP], 154)
+    out.append(hist_entry(
+        "cohort window counts, 154 scaffolds, 16 dimers, w = 200, 2^22 "
+        "starts", values, valid, size,
+        more=(("mask_ms", lambda: wv[None, :].expand(16, -1).contiguous()),)))
     return out
 
 
@@ -987,6 +1096,289 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def window_stages():
+    """While on, the window path's stages are timed: the staging of each
+    sequence on the card (bases and validity copied, merged there; host
+    clock to a synchronize) and each chunk's device work (CUDA events, no
+    synchronize).  Yields the dict of sums in s and the chunk count."""
+    import torch
+
+    from kmer_spans_tpu_torch.parallel import device as par_device
+    from kmer_spans_tpu_torch.parallel.window_stream import (
+        StreamingWindowEngine,
+    )
+
+    st = {"staging": 0.0, "device": 0.0, "chunks": 0}
+    events = []
+    stage0, chunk0 = par_device.device_nbases, StreamingWindowEngine._chunk
+
+    def stage(*a, **kw):
+        t0 = time.perf_counter()
+        out = stage0(*a, **kw)
+        torch.cuda.synchronize()
+        st["staging"] += time.perf_counter() - t0
+        return out
+
+    def chunk(self, *a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = chunk0(self, *a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        st["chunks"] += 1
+        return out
+
+    par_device.device_nbases, StreamingWindowEngine._chunk = stage, chunk
+    try:
+        yield st
+    finally:
+        par_device.device_nbases, StreamingWindowEngine._chunk = \
+            stage0, chunk0
+        torch.cuda.synchronize()
+        st["device"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+
+
+def both_runs(label, call, card, stages, counted=True):
+    """Run ``call`` with the kernels, then with the plain versions, each
+    timed; returns (kernels' result, plain result, K3's launches in the
+    kernels' run)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import histogram
+
+    out, launches = [], 0
+    for plain in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        with plain_versions(plain), stages() as st:
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if not plain:
+            launches = histogram.histogram_launches
+            if counted and launches < 1:
+                raise AssertionError(f"{label}: the path skipped K3")
+        parts = ", ".join(
+            f"{key} {v * 1e3:.1f} ms" if isinstance(v, float) else
+            f"{key} {v}" for key, v in st.items())
+        log(f"  {label}, {'plain versions' if plain else 'kernels'}: wall "
+            f"{wall:.3f} s; {parts}; K3 launches "
+            f"{histogram.histogram_launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+        out.append(res)
+    return out[0], out[1], launches
+
+
+def window_phase(dev, nbases: np.ndarray, card: str) -> int:
+    """Phase 10: windowed distributions at full size, each run with the
+    kernels and again with the plain versions, the two equal: the 16
+    dimers, window 200, over the whole genome (ret_flag 0) and its first
+    48 Mb (ret_flag 1, the int64 positions matrix); the 154-scaffold
+    cohort per scaffold (kmer_counts k = 1 and window_kmer_dist) and in
+    one windowed_counts_device(seg2d=...) call.  Returns K3's launches in
+    the kernels' runs."""
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.ops.window import windowed_counts_device
+
+    dimers = api.kmer_seq(2)
+    launches = 0
+
+    def packed(x):
+        return PackedSeq(bases=x & 3, valid=x < 4)
+
+    seq = packed(nbases)
+    got, want, n_k3 = both_runs(
+        "window_kmer_dist 16 dimers w=200 ret_flag=0",
+        lambda: api.window_kmer_dist(seq, dimers, 200, freq=False,
+                                     device=dev), card, window_stages)
+    launches += n_k3
+    if not np.array_equal(got.dist, want.dist) or got.scores is not None:
+        raise AssertionError("window_kmer_dist differs from the plain run")
+    nwin = int(got.dist[:, 0].sum())
+    if nwin <= 0 or (got.dist.sum(axis=0) != nwin).any():
+        raise AssertionError("window_kmer_dist: columns count different "
+                             "numbers of windows")
+    log(f"  window_kmer_dist: {nwin:,} valid windows, {n_k3} K3 launches, "
+        "equal to the plain run")
+    del got, want
+    head = packed(nbases[:48_000_000])
+    got, want, n_k3 = both_runs(
+        "window_kmer_dist 16 dimers w=200 ret_flag=1, first 48 Mb",
+        lambda: api.window_kmer_dist(head, dimers, 200, freq=False,
+                                     ret_flag=1, device=dev),
+        card, window_stages)
+    launches += n_k3
+    if not (np.array_equal(got.dist, want.dist)
+            and np.array_equal(got.scores[0], want.scores[0])):
+        raise AssertionError("window_kmer_dist ret_flag=1 differs from the "
+                             "plain run")
+    cpos = got.scores[0]
+    if cpos.shape != (48_000_000, 16) or cpos.dtype != np.int64:
+        raise AssertionError(f"positions matrix {cpos.shape} {cpos.dtype}")
+    log(f"  ret_flag=1: positions matrix {cpos.shape} int64 "
+        f"({cpos.nbytes / 1e9:.2f} GB), max count {int(cpos.max())}, equal "
+        "to the plain run")
+    del got, want, cpos
+
+    scaffolds, cat, seg = cohort(nbases)
+    log(f"  cohort: {len(scaffolds)} scaffolds, {cat.shape[0]:,} positions "
+        f"with separators, longest {scaffolds[0].shape[0]:,}")
+
+    def per_scaffold():
+        t0 = time.perf_counter()
+        mono = [api.kmer_counts(packed(s), 1, with_f=False,
+                                device=dev).counts for s in scaffolds]
+        t1 = time.perf_counter()
+        dists = [api.window_kmer_dist(packed(s), dimers, 200, freq=False,
+                                      device=dev).dist for s in scaffolds]
+        log(f"    kmer_counts k=1 x {len(scaffolds)}: {t1 - t0:.3f} s; "
+            f"window_kmer_dist x {len(scaffolds)}: "
+            f"{time.perf_counter() - t1:.3f} s")
+        return np.stack(mono), np.stack(dists)
+
+    got, want, n_k3 = both_runs("cohort, per-scaffold calls", per_scaffold,
+                                card, window_stages)
+    launches += n_k3
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("cohort per scaffold differs from the plain run")
+    mono, dists = got
+    if (mono.sum(axis=1) != [valid_kmers(s, 1) for s in scaffolds]).any():
+        raise AssertionError("kmer_counts k=1 miscounted a scaffold")
+    tracked = torch.arange(16, dtype=torch.int32, device=dev)
+
+    def one_call():
+        t0 = time.perf_counter()
+        codes, kv, v2, seg2 = cohort_counts_inputs(dev, cat, seg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d, _, _ = windowed_counts_device(codes, kv, v2, tracked, 2, 200,
+                                         seg2d=seg2, n_seqs=len(scaffolds))
+        d = d.cpu().numpy()
+        log(f"    one call: staging and codes {t1 - t0:.3f} s, "
+            f"windowed_counts_device {time.perf_counter() - t1:.3f} s")
+        return d
+
+    got, want, n_k3 = both_runs("cohort, one seg2d call", one_call, card,
+                                lambda: contextlib.nullcontext({}))
+    launches += n_k3
+    if not np.array_equal(got, want):
+        raise AssertionError("cohort call differs from the plain run")
+    if not np.array_equal(got.astype(np.int64), dists):
+        raise AssertionError("cohort call differs from the per-scaffold "
+                             "calls")
+    log(f"  cohort: per-scaffold calls and the one seg2d call equal "
+        f"(dist {got.shape}), equal to the plain runs")
+    return launches
+
+
+@contextlib.contextmanager
+def tr_stages():
+    """While on, the tr path's stages are timed on the host clock, each
+    to a synchronize: the staging of each sequence on the card, the
+    summaries, the runstats, the batched candidate pulls (counted) and
+    the host replay."""
+    import torch
+
+    from kmer_spans_tpu_torch.parallel import device as par_device
+    from kmer_spans_tpu_torch.spans import tr_pipeline as tr
+
+    st = {"staging": 0.0, "summaries": 0.0, "runstats": 0.0, "pulls": 0.0,
+          "replay": 0.0, "pull batches": 0}
+    saved = (par_device.device_nbases, tr.TrPipeline.summaries,
+             tr.TrPipeline.runstats, tr._pull_batches, tr._replay_stretches)
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            st[key] += time.perf_counter() - t0
+            if key == "pulls":
+                st["pull batches"] += out[1]
+            return out
+        return run
+
+    (par_device.device_nbases, tr.TrPipeline.summaries,
+     tr.TrPipeline.runstats, tr._pull_batches, tr._replay_stretches) = (
+        timed(key, fn) for key, fn in zip(
+            ("staging", "summaries", "runstats", "pulls", "replay"), saved))
+    try:
+        yield st
+    finally:
+        (par_device.device_nbases, tr.TrPipeline.summaries,
+         tr.TrPipeline.runstats, tr._pull_batches,
+         tr._replay_stretches) = saved
+
+
+def tr_tables(k: int):
+    """Phase 11's tables, in 2-bit order: at k = 2 AG and GA seed 2.0 and
+    transition 2.0, every other dimer -1.0 / -0.5; at k = 8 AGAGAGAG and
+    GAGAGAGA +1.5, every other 8-mer -0.4 (both scores)."""
+    from kmer_spans_tpu_torch.encoding import all_kmers
+
+    kmers = all_kmers(k)
+    if k == 2:
+        hot = ("AG", "GA")
+        ks = [2.0 if km in hot else -1.0 for km in kmers]
+        ts = [2.0 if km in hot else -0.5 for km in kmers]
+    else:
+        hot = ("AGAGAGAG", "GAGAGAGA")
+        ks = ts = [1.5 if km in hot else -0.4 for km in kmers]
+    return kmers, ks, ts
+
+
+def lr_phase(dev, nbases: np.ndarray, card: str) -> None:
+    """Phase 11: api.lr_regions on the whole genome at min_length 100, at
+    k = 2 and k = 8, with the kernels and again with the plain versions
+    (no kernel is on this path: the two must be equal all the same);
+    every planted island called; the first 2^20 bases held against the
+    sequential oracle, positions and f64 scores equal."""
+    import types
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.oracle import find_tr_regions
+
+    n = nbases.shape[0]
+    seq = PackedSeq(bases=nbases & 3, valid=nbases < 4)
+    head = PackedSeq(bases=nbases[:1 << 20] & 3, valid=nbases[:1 << 20] < 4)
+    for k in (2, 8):
+        kmers, ks, ts = tr_tables(k)
+        api.exact_fallbacks = 0
+        got, want, _ = both_runs(
+            f"lr_regions k={k} min_length=100",
+            lambda: api.lr_regions(seq, (k, 100), kmers, ks, ts, device=dev),
+            card, tr_stages, counted=False)
+        if not (np.array_equal(got.regions, want.regions)
+                and np.array_equal(got.kmer_scores, want.kmer_scores)):
+            raise AssertionError(f"lr_regions k={k} differs from the plain "
+                                 "run")
+        hit = check_islands(types.SimpleNamespace(
+            fallback=False, regions=[tuple(r)[:4] for r in got.regions]), n)
+        # exact_fallbacks counted the batches beyond the first in both runs
+        log(f"  lr_regions k={k}: {len(got.regions)} regions, all {hit} "
+            f"planted islands called, {api.exact_fallbacks // 2} pull "
+            "batches beyond the first, equal to the plain run")
+        t0 = time.perf_counter()
+        res = api.lr_regions(head, (k, 100), kmers, ks, ts, device=dev)
+        t1 = time.perf_counter()
+        want = find_tr_regions(head, 1, k, res.kmer_scores[:, 0],
+                               res.kmer_scores[:, 1], 100)
+        got = [tuple(r)[:4] for r in res.regions]
+        if got != want or not got:
+            raise AssertionError(f"lr_regions k={k}, first 2^20 bases: "
+                                 f"{got[:3]} != oracle {want[:3]}")
+        log(f"  lr_regions k={k}, first 2^20 bases: {len(got)} regions == "
+            f"the oracle's, positions and f64 scores ({t1 - t0:.3f} s on the "
+            f"card, {time.perf_counter() - t1:.3f} s the oracle)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1055,6 +1447,7 @@ def main(argv=None) -> int:
     times["word_gather"], more = time_word_gather(dev, nbases_dev)
     k3 = more[:1] + k3 + more[1:]  # k = 9 count first: the JSON line's
     k3 += time_spectra(dev, nbases_dev)
+    k3 += time_window_k3(dev, nbases_dev, nbases)
     times["histogram"] = main_entry(k3)
     err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
@@ -1071,6 +1464,14 @@ def main(argv=None) -> int:
 
     phase("phase 9: full-size exact api path")
     launches["histogram"] += exact_phase(dev, nbases, card)
+    torch.cuda.empty_cache()
+
+    phase("phase 10: full-size windowed distributions")
+    launches["histogram"] += window_phase(dev, nbases, card)
+    torch.cuda.empty_cache()
+
+    phase("phase 11: full-size transition-score caller")
+    lr_phase(dev, nbases, card)
 
     phase(None)
     if "jax" in sys.modules or any(

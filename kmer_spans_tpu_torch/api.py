@@ -16,6 +16,11 @@ in place of the reference's ``backend``:
     sequences at once, for 2 <= k <= 9 (the class screen of
     spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
     and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py);
+  * lr_regions: the transition-score caller (spans/tr_pipeline.py), its
+    integer screen on the device and the exact f64 replay of its
+    candidate blocks on the host;
+  * window_kmer_dist: windowed k-mer count distributions (ops/window.py,
+    parallel/window_stream.py; K3 for the count histogram);
   * kmer_seq, kmers_to_file and read_kmers.
 
 Results carry the reference's fields: region positions and f64 scores are
@@ -55,7 +60,13 @@ from .models.scoring import (
     WeightScoring,
 )
 from .ops.pmscreen import pm_params
-from .parallel.device import bucket_size, device_count_spectrum, staged_nbases
+from .parallel.device import (
+    bucket_size,
+    device_count_spectrum,
+    device_tr_regions,
+    device_window_dist,
+    staged_nbases,
+)
 from .spans.finish import finish_spans, finish_weight_spans
 from .spans.pipeline import (
     make_span_pipeline,
@@ -67,7 +78,8 @@ from .spans.pm_pipeline import make_pm_span_pipeline
 from .stats.ranks import cumulative_mass, spectrum_median_freq
 from .utils import native
 
-#: device reruns after a candidate- or list-capacity overflow
+#: device reruns after a candidate- or list-capacity overflow, and
+#: lr_regions' pull batches beyond the first of each sequence
 exact_fallbacks = 0
 
 _REGION_DTYPE = np.dtype(
@@ -361,6 +373,121 @@ def kmers_to_file(seq_f, out_prefix: str, k, min_l: int = 100_000,
 def read_kmers(fname):
     """Read a binary spectrum file (magic 310572); None on bad magic."""
     return _read_kmers(fname)
+
+
+# ---------------------------------------------------------------------------
+# Transition-score regions
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LrRegionResult:
+    kmer_scores: np.ndarray  # [4^k, 2] reordered (seed, transition) tables
+    regions: np.ndarray  # structured; score column + null column (entropy)
+
+
+def lr_regions(
+    seqs, params, kmers, kmer_scores, trans_scores, device="cuda"
+) -> LrRegionResult:
+    """Transition-score span calling (reference tr_lr_regions_r, :649-713),
+    one sequence at a time on ``device`` (parallel/device.py
+    device_tr_regions).
+
+    params = (k, min_length).  ``kmers`` gives the order of the score
+    tables (any order, e.g. alphabetical); they are reordered to 2-bit
+    order by re-encoding each k-mer string, as the reference does
+    (:686-694).  Candidate blocks beyond one pull of C are pulled from the
+    device in further batches, each counted in ``exact_fallbacks`` (the
+    reference serves such a sequence with its CPU oracle instead).
+    """
+    global exact_fallbacks
+    k, min_length = int(params[0]), int(params[1])
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k should be in [1, {MAX_K}]")
+    if min_length < 0:
+        raise ValueError("min_length should be a positive integer")
+    size = 1 << (2 * k)
+    kmer_scores = np.asarray(kmer_scores, dtype=np.float64)
+    trans_scores = np.asarray(trans_scores, dtype=np.float64)
+    if not (len(kmers) == kmer_scores.shape[0] == trans_scores.shape[0]
+            == size):
+        raise ValueError(
+            "kmers, kmer_scores, trans_scores should all be 4^k long")
+    ks = np.empty(size, dtype=np.float64)
+    ts = np.empty(size, dtype=np.float64)
+    for i, kmer in enumerate(kmers):
+        code = kmer_to_code(kmer)
+        ks[code] = kmer_scores[i]
+        ts[code] = trans_scores[i]
+    dev = resolve_device(device)
+    regions = []
+    for i, p in enumerate(_as_seq_list(seqs)):
+        # reference seq_id starts at 1 here (:699)
+        res = device_tr_regions(p, k, ks, ts, min_length, seq_id=i + 1,
+                                device=dev)
+        exact_fallbacks += max(res.pull_batches - 1, 0)
+        regions.extend(res.regions)
+    return LrRegionResult(
+        kmer_scores=np.stack([ks, ts], axis=1),
+        regions=_as_region_array(regions),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Windowed k-mer count distributions
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WindowDistResult:
+    dist: np.ndarray  # (window+1, kmer_n); frequencies if freq else counts
+    seq_i: np.ndarray  # int [n_seqs]; 1 where the sequence was included
+    scores: list | None  # per-seq (len, kmer_n) count matrices if ret_flag&1
+    kmers: list[str]
+
+
+def window_kmer_dist(
+    seqs, kmers, window: int, freq: bool = True, ret_flag: int = 0,
+    device="cuda",
+) -> WindowDistResult:
+    """Sliding-window occurrence distributions (reference :717-793), one
+    sequence at a time on ``device`` (parallel/device.py
+    device_window_dist, K3 for the count histogram).
+
+    Sequences with length <= window are skipped and flagged 0 in seq_i.
+    """
+    kmers = list(kmers)
+    klens = {len(x) for x in kmers}
+    if len(klens) != 1:
+        raise ValueError("all kmers must be of the same size")
+    k = klens.pop()
+    if k >= 16:
+        raise ValueError("kmer sizes >= 16 not supported")
+    if window < 2 * k:
+        raise ValueError("the window size must be at least two times k")
+    dev = resolve_device(device)
+    tracked = np.array([kmer_to_code(x) for x in kmers], dtype=np.int64)
+    packed = _as_seq_list(seqs)
+    dist = np.zeros((window + 1, len(kmers)), dtype=np.int64)
+    seq_i = np.zeros(len(packed), dtype=np.int64)
+    scores = [] if (ret_flag & 1) else None
+    for i, p in enumerate(packed):
+        if p.n <= window:
+            if scores is not None:
+                scores.append(None)
+            continue
+        seq_i[i] = 1
+        d, cpos = device_window_dist(p, tracked, k, window,
+                                     scores is not None, device=dev)
+        dist += d
+        if scores is not None:
+            scores.append(cpos)
+    out = dist.astype(np.float64)
+    if freq:
+        colsum = out.sum(axis=0)
+        colsum[colsum == 0] = 1.0
+        out = out / colsum
+    return WindowDistResult(
+        dist=out if freq else dist, seq_i=seq_i, scores=scores, kmers=kmers
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@
 // ks_chain_from_hist), the integer mass of queried codes
 // (ks_mass_of_codes) and the reference-exact candidate replays
 // (ks_replay_packed, ks_replay_scores).  Same arithmetic, same operation
-// order, same f64 folds as the original.
+// order, same f64 folds as the original.  ks_replay_tr, the transition-
+// score replay, is the C form of the port's spans/tr_pipeline.py
+// replay_tr_segment.
 //
 // Built at first use with the system C++ compiler into
 // kmer_spans_tpu_torch/build/ (utils/native.py says how).
@@ -217,6 +219,96 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
             break;
         }
     }
+    return nreg;
+}
+
+// ---------------------------------------------------------------------------
+// Transition-score replay over one stretch of candidate positions: the C
+// form of spans/tr_pipeline.py replay_tr_segment (the reference's
+// find_kmer_tr_lr_regions, src/kmer_spans.c:329-395), same control flow
+// and the same f64 operations in the same order.  Per position its k-mer
+// code and its seed / extension flags; a seed scores max(ks[code], 0), an
+// extension adds ts[code]; any other position closes the block.  seq_len
+// >= 0: a seed whose k-mer ends within 2 bytes of it ends the replay (the
+// reference's :341 quirk); < 0: no such check.  Coordinates: 1-based
+// last-base positions offset by base_pos.  Returns total regions (only the
+// first `capacity` are written).
+// ---------------------------------------------------------------------------
+int64_t ks_replay_tr(const int32_t* codes, const uint8_t* seed,
+                     const uint8_t* ext, int64_t n, const double* ks,
+                     const double* ts, int64_t base_pos, int64_t min_len,
+                     int64_t seq_len, int64_t* out_beg, int64_t* out_end,
+                     double* out_score, int64_t capacity) {
+    int64_t nreg = 0;
+    bool in_block = false;
+    double score = 0.0, last = 0.0, max_score = 0.0;
+    int64_t max_pos = 0, reg_begin = 0;
+    auto emit = [&]() {
+        if (nreg < capacity) {
+            out_beg[nreg] = 1 + reg_begin;
+            out_end[nreg] = 1 + max_pos;
+            out_score[nreg] = max_score;
+        }
+        ++nreg;
+    };
+    int64_t j = 0;
+    while (j < n) {
+        if (seed[j]) {
+            if (seq_len >= 0 && base_pos + j >= seq_len - 2) {
+                in_block = false;  // the reference's end-of-sequence abandon
+                break;
+            }
+            const double v = ks[codes[j]];
+            score = (0.0 > v) ? 0.0 : v;  // Python's max(v, 0.0)
+            last = score;
+            max_score = 0.0;
+            max_pos = reg_begin = 0;
+            if (score > 0.0) {
+                max_score = score;
+                max_pos = base_pos + j + 1;  // one past the seed's last base
+                reg_begin = base_pos + j + 1;
+            }
+            in_block = true;
+            ++j;
+        } else if (ext[j]) {
+            if (!in_block) {
+                score = last = max_score = 0.0;
+                max_pos = reg_begin = 0;
+                in_block = true;
+            }
+            const int64_t pos0 = base_pos + j;
+            score = last + ts[codes[j]];
+            if (score > max_score) {
+                max_score = score;
+                max_pos = pos0;
+            }
+            if (score < 0.0) score = 0.0;
+            if (last == 0.0 && score > 0.0) {
+                max_score = score;
+                max_pos = pos0;
+                reg_begin = pos0;
+            }
+            if (score == 0.0 && last > 0.0) {
+                if (max_pos - reg_begin >= min_len) emit();
+                const int64_t jmp = max_pos - base_pos;  // jump back
+                score = last = max_score = 0.0;
+                reg_begin = max_pos;
+                max_pos = 0;
+                j = jmp + 1;
+                continue;
+            }
+            last = score;
+            ++j;
+        } else {
+            if (in_block && max_score > 0.0 && max_pos - reg_begin >= min_len)
+                emit();
+            in_block = false;
+            score = last = max_score = 0.0;
+            max_pos = reg_begin = 0;
+            ++j;
+        }
+    }
+    if (in_block && max_score > 0.0 && max_pos - reg_begin >= min_len) emit();
     return nreg;
 }
 

@@ -19,29 +19,39 @@ SCREEN_NEG = -(1 << 30)
 INT_INF = 1 << 30
 
 
-def halo_blocks(x: torch.Tensor, h: int, fill=0) -> torch.Tensor:
+def halo_blocks(x: torch.Tensor, h: int, fill=0, first=None) -> torch.Tensor:
     """[nb, B] -> [nb, h+B]: row i gets row i-1's last h columns as prefix.
 
-    Row 0's prefix is ``fill`` (the genome start).
+    Row 0's prefix is ``first`` ([h]) if given (the bases before a chunk
+    of a longer sequence), else ``fill`` (the genome start).
     """
     nb, B = x.shape
-    first = torch.full((1, h), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([torch.cat([first, x[:-1, B - h:]], 0), x], 1)
+    if first is None:
+        head = torch.full((1, h), fill, dtype=x.dtype, device=x.device)
+    else:
+        head = torch.as_tensor(first, device=x.device).reshape(1, h).to(
+            x.dtype)
+    return torch.cat([torch.cat([head, x[:-1, B - h:]], 0), x], 1)
 
 
-def blocked_codes(bases2d: torch.Tensor, valid2d: torch.Tensor, k: int):
+def blocked_codes(bases2d: torch.Tensor, valid2d: torch.Tensor, k: int,
+                  first_bases=None, first_valid=None):
     """Rolling codes + k-mer validity per block (end-position convention).
 
     bases2d: [nb, B] 2-bit bases; valid2d: [nb, B] bool (non-N).
+    first_bases/first_valid ([k-1]) seed row 0's halo: the k-1 bases
+    before the tile (a chunk's predecessor); by default invalid, i.e. the
+    genome start.
     Returns (codes int32 [nb, B], kmer_valid bool [nb, B]).  Codes are the
     RAW rolling codes (an N reads as base 0), as in the reference: every
     consumer masks by kmer_valid or scored.  Built in place on one copy
     of each tile to keep the peak at genome scale down.
     """
     h = k - 1
-    return _rolling(halo_blocks(bases2d.to(torch.int32), h),
-                    halo_blocks(valid2d, h, fill=False), k,
-                    bases2d.shape[1])
+    return _rolling(halo_blocks(bases2d.to(torch.int32), h,
+                                first=first_bases),
+                    halo_blocks(valid2d, h, fill=False, first=first_valid),
+                    k, bases2d.shape[1])
 
 
 def _rolling(eb: torch.Tensor, ev: torch.Tensor, k: int, B: int):

@@ -1,11 +1,13 @@
 """The sequential reference the port is held against: the port's own copy.
 
 Copied from ``kmer_spans_tpu/oracle/reference.py`` (spectrum count,
-weighted ranks, span caller) and ``kmer_spans_tpu/utils/testgen.py`` (the
-golden genome), so that the port and chip_smoke.py import nothing of the
-JAX package.  Straightforward sequential numpy/python code with the
-reference's exact f64 rank chain and region recurrence, bit-identical to
-the C reference (src/kmer_spans.c:135-155, :189-202, :243-307).
+weighted ranks, span caller, transition-score caller, windowed
+distributions) and ``kmer_spans_tpu/utils/testgen.py`` (the golden
+genome), so that the port and chip_smoke.py import nothing of the JAX
+package.  Straightforward sequential numpy/python code with the
+reference's exact f64 rank chain and region recurrences, bit-identical to
+the C reference (src/kmer_spans.c:135-155, :189-202, :243-307, :329-395,
+:413-449).  Never on the card path: the port's yardstick only.
 
 Coordinates: a region's (beg, end) are the 1-based positions of the last
 base of its first positive-scoring and its first maximum-scoring k-mer.
@@ -17,8 +19,8 @@ import numpy as np
 
 from .encoding import MAX_K, pack
 
-__all__ = ["count_spectrum", "find_regions", "golden_genome",
-           "weighted_ranks"]
+__all__ = ["count_spectrum", "find_regions", "find_tr_regions",
+           "golden_genome", "weighted_ranks", "windowed_distributions"]
 
 
 def segments(valid: np.ndarray) -> list[tuple[int, int]]:
@@ -201,6 +203,149 @@ def _scan_segment_once(
             regions.append((seq_id, reg_beg, max_pos, max_score))
             return (max_pos + 1) - (end0 + 1)
     return None
+
+
+# ---------------------------------------------------------------------------
+# Transition-score caller  (reference find_kmer_tr_lr_regions, :329-395; A.6)
+# ---------------------------------------------------------------------------
+
+def find_tr_regions(
+    seq,
+    seq_id: int,
+    k: int,
+    kmer_scores: np.ndarray,
+    trans_scores: np.ndarray,
+    min_region_length: int,
+):
+    """Sequential transition-score caller.
+
+    Differences from find_regions (SURVEY A.6), all reproduced:
+      * the first k-mer of each block seeds ``score = kmer_scores[code]``
+        clamped to >= 0; extensions add ``trans_scores[code]``;
+      * the running max is updated BEFORE the 0-clamp;
+      * emission gate is min length only (no min_score);
+      * EVERY zero-crossing from positive jumps back to the max position and
+        rescans (not only emitting ones);
+      * QUIRK: if the block's seed k-mer scores positive, reg_begin is
+        recorded one position late (the reference records i = one past the
+        seed's last base), so a region starting at the seed reports
+        beg = seed_last_base + 2 in 1-based terms;
+      * QUIRK: the reference breaks out of the whole sequence when the seed
+        k-mer is followed by fewer than 2 remaining bytes (:341).
+      * the final k-mer of a segment IS scored here (unlike find_regions).
+
+    Returns list of (seq_id, beg, end, score), 1-based last-base coordinates.
+    """
+    p = pack(seq)
+    kmer_scores = np.asarray(kmer_scores, dtype=np.float64)
+    trans_scores = np.asarray(trans_scores, dtype=np.float64)
+    regions: list[tuple[int, int, int, float]] = []
+    n = p.n
+
+    for a, b in segments(p.valid):
+        if b - a + 1 < k:
+            continue
+        codes = _segment_codes(p.bases, a, b, k)
+        end0 = a + k - 1
+        # QUIRK (:341): after init, reference breaks the whole-sequence loop
+        # if seq[i] or seq[i+1] is the terminator, where i = end0+1 (one past
+        # the seed k-mer): blocks whose seed lands within 2 bytes of the end
+        # of the sequence are abandoned without scoring or terminal emission.
+        if end0 >= n - 2:
+            break
+        # seed
+        seed_score = float(kmer_scores[int(codes[0])])
+        score = seed_score if seed_score > 0.0 else 0.0
+        last_score = score
+        max_score = 0.0
+        max_score_pos0 = 0  # 0-based position as the reference tracks (loop i)
+        reg_begin0 = 0
+        if score > 0.0:
+            max_score = score
+            max_score_pos0 = end0 + 1  # QUIRK: one past the seed's last base
+            reg_begin0 = end0 + 1
+        # extensions: k-mers ending at end0+1 .. b  -> codes[1..]
+        j = 1
+        n_codes = codes.shape[0]
+        while j < n_codes:
+            pos0 = end0 + j  # 0-based last base of this k-mer == reference i
+            score = last_score + float(trans_scores[int(codes[j])])
+            if score > max_score:
+                max_score = score
+                max_score_pos0 = pos0
+            if score < 0.0:
+                score = 0.0
+            if last_score == 0.0 and score > 0.0:
+                max_score = score
+                max_score_pos0 = pos0
+                reg_begin0 = pos0
+            if score == 0.0 and last_score > 0.0:
+                if max_score_pos0 - reg_begin0 >= min_region_length:
+                    regions.append(
+                        (seq_id, 1 + reg_begin0, 1 + max_score_pos0, max_score)
+                    )
+                # unconditional jump-back to the max position; rescan resumes
+                # scoring at max_score_pos0 + 1 with S = 0.
+                jump0 = max_score_pos0
+                score = last_score = max_score = 0.0
+                reg_begin0 = jump0
+                max_score_pos0 = 0
+                j = (jump0 + 1) - end0  # next iteration scores pos0 = jump0+1
+                last_score = 0.0
+                continue
+            last_score = score
+            j += 1
+        # terminal region, reference :392-393
+        if max_score > 0.0 and max_score_pos0 - reg_begin0 >= min_region_length:
+            regions.append((seq_id, 1 + reg_begin0, 1 + max_score_pos0, max_score))
+    return regions
+
+
+# ---------------------------------------------------------------------------
+# Windowed k-mer count distributions  (reference :413-449)
+# ---------------------------------------------------------------------------
+
+def windowed_distributions(
+    seq,
+    tracked_codes: np.ndarray,
+    k: int,
+    window: int,
+    dist: np.ndarray | None = None,
+    counts_pos: np.ndarray | None = None,
+):
+    """Occurrence-count distributions of tracked k-mers over sliding windows.
+
+    For every window of ``window`` bases fully inside an N-free segment, the
+    occurrence count of each tracked k-mer (k-mers fully inside the window,
+    i.e. window-k+1 slots) is histogrammed into ``dist[count, i]``
+    (shape (window+1, n_tracked)).  If ``counts_pos`` (shape (n, n_tracked))
+    is given, the count is also recorded at the window's 0-based start
+    position (reference kmer_counts_pos, :441-442).
+
+    Windows slide by 1 within a segment and never span N gaps.
+    """
+    p = pack(seq)
+    tracked_codes = np.asarray(tracked_codes, dtype=np.int64)
+    n_tracked = tracked_codes.shape[0]
+    if dist is None:
+        dist = np.zeros((window + 1, n_tracked), dtype=np.int64)
+    for a, b in segments(p.valid):
+        seg_len = b - a + 1
+        if seg_len < window:
+            continue
+        codes = _segment_codes(p.bases, a, b, k)  # start positions a .. b-k+1
+        # occ[i, j] = 1 if k-mer starting at a+j equals tracked i
+        n_windows = seg_len - window + 1
+        slots = window - k + 1  # k-mer start slots per window
+        for i in range(n_tracked):
+            occ = (codes == tracked_codes[i]).astype(np.int64)
+            cs = np.concatenate([[0], np.cumsum(occ)])
+            # window starting at a+t covers k-mer starts t .. t+slots-1
+            wc = cs[slots : slots + n_windows] - cs[0:n_windows]
+            dist[:, i] += np.bincount(wc, minlength=window + 1)
+            if counts_pos is not None:
+                counts_pos[a : a + n_windows, i] = wc
+    return dist
 
 
 _LCG_MUL = np.uint64(6364136223846793005)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "ks_replay_packed": (_P, _P, _I64, _I64, _I32, _P, _F64, _I64, _F64,
                          _I64, _P, _P, _P, _I64),
     "ks_replay_scores": (_P, _P, _I64, _I64, _F64, _I64, _P, _P, _P, _I64),
+    "ks_replay_tr": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P,
+                     _I64),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -218,6 +220,37 @@ def replay_scores(
         nreg = lib.ks_replay_scores(
             s.ctypes.data, scored.ctypes.data, s.shape[0],
             min_width, min_score, base_pos,
+            beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap)
+        if nreg <= cap:
+            return beg[:nreg], end[:nreg], score[:nreg]
+        cap = int(nreg) + 16
+
+
+def replay_tr(codes, seed, ext, ks, ts, base_pos: int, min_len: int,
+              seq_len: int | None = None):
+    """The transition-score replay of one stretch (spans/tr_pipeline.py
+    replay_tr_segment, with ks/ts the 4^k f64 tables gathered at each
+    position's code); None if unavailable.
+
+    Returns (beg, end, score) arrays in global 1-based last-base coords.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    seed = np.ascontiguousarray(seed, dtype=np.uint8)
+    ext = np.ascontiguousarray(ext, dtype=np.uint8)
+    ks = np.ascontiguousarray(ks, dtype=np.float64)
+    ts = np.ascontiguousarray(ts, dtype=np.float64)
+    cap = 256
+    while True:
+        beg = np.empty(cap, dtype=np.int64)
+        end = np.empty(cap, dtype=np.int64)
+        score = np.empty(cap, dtype=np.float64)
+        nreg = lib.ks_replay_tr(
+            codes.ctypes.data, seed.ctypes.data, ext.ctypes.data,
+            codes.shape[0], ks.ctypes.data, ts.ctypes.data, base_pos,
+            min_len, -1 if seq_len is None else seq_len,
             beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap)
         if nreg <= cap:
             return beg[:nreg], end[:nreg], score[:nreg]

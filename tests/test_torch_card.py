@@ -389,3 +389,139 @@ def test_kmer_spans_on_card_equals_cpu(card, scoring):
     want = api.kmer_spans(seq, 8, scoring=scoring, device="cpu")
     for f in ("n", "counts", "regions"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+# ------------------------------------ windowed distributions, the tr caller
+
+def _window_k3_input(card, seed, T=16, n=1 << 20, window=200, S=None):
+    """K3's input at the window path's shape: the combined (kmer, count)
+    indices of T tracked dimers over n window starts, neighbours within
+    one count of each other, or (scaffold, kmer, count) with S scaffolds."""
+    from kmer_spans_tpu_torch.ops.window import dist_values
+
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(-1, 2, (T, n)).astype(np.int32)
+    cnt = np.clip(np.cumsum(steps, axis=1) % (2 * window), 0, window)
+    wv = rng.random(n) < 0.99
+    wv[1000:3000] = False
+    seg = None
+    if S:
+        seg = to_tensor(np.sort(rng.integers(0, S, n)).astype(np.int32),
+                        card)
+    values, valid, size = dist_values(
+        to_tensor(cnt.astype(np.int32), card), to_tensor(wv, card), window,
+        seg, S)
+    return values, valid, size
+
+
+@pytest.mark.parametrize("S", [None, 154])
+def test_histogram_at_the_window_shapes(card, S):
+    """3328 bins of near-equal neighbours (sliced form), and the cohort's
+    S * 3232 bins (global form)."""
+    values, valid, size = _window_k3_input(card, 3 if S is None else S, S=S)
+    assert size == (3328 if S is None else -(-154 * 3232 // 128) * 128)
+    want = histogram_plain(values, valid, size)
+    before = histogram.histogram_launches
+    assert torch.equal(histogram.histogram(values, valid, size), want)
+    assert histogram.histogram_launches == before + 1
+    for form in histogram.FORMS:
+        assert torch.equal(histogram.histogram_kernel(values, valid, size,
+                                                      form), want)
+    assert histogram.histogram_form(size) == (
+        "sliced" if S is None else "global")
+
+
+def _window_genome(seed, n):
+    rng = np.random.default_rng(seed)
+    arr = rng.integers(0, 4, n).astype(np.uint8)
+    arr[rng.random(n) < 0.0005] = 4
+    arr[50_000:53_000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    return arr
+
+
+@pytest.mark.parametrize("with_positions", [False, True])
+def test_windowed_counts_kernel_matches_plain_and_cpu(card, with_positions,
+                                                      monkeypatch):
+    from kmer_spans_tpu_torch.ops import window
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+
+    arr = _window_genome(1, 40 * 8192)
+    tracked = torch.arange(16, dtype=torch.int32)
+    monkeypatch.setattr(window, "GROUP", 1 << 17)
+
+    def run(dev):
+        nb = to_tensor(arr, dev)
+        b2, v2 = (nb & 3).reshape(-1, 8192), (nb < 4).reshape(-1, 8192)
+        codes, kv = blocked_codes(b2, v2, 2)
+        return window.windowed_counts_device(
+            codes, kv, v2, tracked.to(dev), 2, 200,
+            with_positions=with_positions, start_limit=39 * 8192)
+
+    before = histogram.histogram_launches
+    got = run(card)
+    torch.cuda.synchronize()
+    assert histogram.histogram_launches == before + 3  # a launch a group
+    want_cpu = run(torch.device("cpu"))
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    want = run(card)
+    for g, w, c in zip(got, want, want_cpu):
+        if w is None:
+            assert g is None and c is None
+        else:
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+def test_window_api_on_card_equals_cpu(card):
+    seqs = ["".join("ACTGN"[b] for b in _window_genome(s, n))
+            for s, n in ((2, 300_000), (3, 70_000))]
+    kmers = api.kmer_seq(2)
+    before = histogram.histogram_launches
+    got = api.window_kmer_dist(seqs, kmers, 200, freq=False, ret_flag=1,
+                               device=card)
+    assert histogram.histogram_launches > before
+    want = api.window_kmer_dist(seqs, kmers, 200, freq=False, ret_flag=1,
+                                device="cpu")
+    assert np.array_equal(got.dist, want.dist)
+    for g, w in zip(got.scores, want.scores):
+        assert np.array_equal(g, w)
+    got = api.window_kmer_dist(seqs, ["A"], 300, freq=False, ret_flag=1,
+                               device=card)  # int16 positions
+    want = api.window_kmer_dist(seqs, ["A"], 300, freq=False, ret_flag=1,
+                                device="cpu")
+    assert np.array_equal(got.dist, want.dist)
+    for g, w in zip(got.scores, want.scores):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_tr_pipeline_on_card_equals_cpu(card, k):
+    """No kernel on this path: the card's cumsum / cummax forms against
+    the CPU's, summaries, runstats, pulled rows and regions."""
+    from kmer_spans_tpu_torch.encoding import all_kmers
+    from kmer_spans_tpu_torch.spans import tr_pipeline as tr
+
+    arr = _window_genome(k, 64 * 8192)
+    kms = all_kmers(k)
+    hot = ("AG", "GA") if k == 2 else ("AGAGAGAG", "GAGAGAGA")
+    ks = np.array([2.0 if km in hot else -1.0 for km in kms])
+    ts = np.array([2.0 if km in hot else -0.5 for km in kms])
+    ks_q, ts_q, _ = tr.quantize_tr_tables(ks, ts, 8192)
+    halo = np.array([0, 3] * k, np.uint8)[:k]
+    x32 = np.random.default_rng(k).choice([0, 7, 1 << 20], 64).astype(
+        np.int32)
+    idx = np.array([0, 6, 63, 6], np.int64)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        pipe = tr.make_tr_pipeline(k, device=dev)
+        nb = to_tensor(arr, dev)
+        s = pipe.summaries(nb, ks_q, ts_q, halo)
+        r = pipe.runstats(nb, ks_q, ts_q, x32, halo)
+        p = pipe.pull(nb, idx, halo)
+        outs.append([v.cpu() for v in (*s.values(), *r, *p)])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    seq = "".join("ACTGN"[b] for b in arr)
+    got = api.lr_regions(seq, (k, 100), kms, ks, ts, device=card)
+    want = api.lr_regions(seq, (k, 100), kms, ks, ts, device="cpu")
+    assert len(got.regions) >= 1
+    assert np.array_equal(got.regions, want.regions)
