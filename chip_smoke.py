@@ -80,7 +80,20 @@ Run from the repository root.  Phases, each of which raises on failure:
      with the kernels and with the plain versions (equal), every planted
      island called, the pull batches counted, the stages (staging,
      summaries, runstats, pulls, host replay) timed, and the first 2^20
-     bases equal to the sequential oracle, positions and f64 scores.
+     bases equal to the sequential oracle, positions and f64 scores;
+ 12. the streaming pipeline (parallel/stream.py) on the same genome in
+     chunks of 2^25 (block 8192, C = 128): k = 8 (K3, K2), 9 (K3, K4) and
+     12 (K3, the row gather) with rank scoring and k = 8 with threshold
+     scoring (the affine row gather), each with the kernels and with the
+     plain versions (spectra, per-chunk summaries, regions equal), K3
+     launched once a chunk in the count pass and K2 or K4 once a chunk in
+     the scan, every island called, nothing unresolved, the k = 8 and 12
+     regions equal to phase 9's exact ones; a stop after chunk 3 and a
+     resume from its checkpoint, equal to the whole run; k = 12 over a
+     2^30-base genome (32 chunks) with its peak device memory and each
+     chunk's stage times (CUDA events); and the CLI's stream and spans
+     on the golden genome with --device cuda, equal to --device cpu.
+     Phase 6 times K2, K3 and K4 at the stream's chunk shapes too.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -1005,7 +1018,9 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
     and the default kmer_low_comp_regions(mode="exact") at k = 8 and 12,
     kmer_regions at k = 8 with a CpG-style table on the planted repeat
     (its k-mers +1.5, every other -0.4) at min_score 20 and 0 (the pull
-    path).  Returns K3's launches in the kernels' runs."""
+    path).  Returns K3's launches in the kernels' runs and the exact
+    regions of kmer_low_comp_regions by k (phase 12 holds the stream to
+    them)."""
     import types
 
     import torch
@@ -1071,12 +1086,15 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
                                  "number of valid k-mers")
         log(f"  kmer_counts k={k}: n = {int(got.n):,} valid k-mers, equal "
             "to the plain run")
+    exact = {}
     for k in (8, 12):
         got, want = both(
             f"kmer_low_comp_regions k={k} exact",
             lambda: api.kmer_low_comp_regions(seq, k, MIN_W, MIN_S, thr=THR,
                                               device=dev))
         same(f"exact k={k}", got, want, ("n", "counts", "regions", "w_rank"))
+        exact[k] = [(int(r["seq_id"]), int(r["beg"]), int(r["end"]),
+                     float(r["score"])) for r in got.regions]
         log(f"  kmer_low_comp_regions k={k} exact: {len(got.regions)} "
             f"regions, all {islands(got)} planted islands called, equal to "
             "the plain run bit for bit")
@@ -1093,7 +1111,7 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
             f"{len(got.regions)} regions, all {islands(got)} planted "
             f"islands called, scan counts sum {int(got.counts.sum()):,}, "
             "equal to the plain run")
-    return launches
+    return launches, exact
 
 
 @contextlib.contextmanager
@@ -1379,6 +1397,301 @@ def lr_phase(dev, nbases: np.ndarray, card: str) -> None:
             f"card, {time.perf_counter() - t1:.3f} s the oracle)")
 
 
+STREAM_CHUNK = 1 << 25
+STREAM_C = 128
+
+
+def time_stream_shapes(dev, nbases_dev) -> tuple[dict, dict, list]:
+    """Phase 6 at the stream's chunk shapes, on the genome's first 2^25
+    bases: K2 on the chunk's k = 8 aug words, K4 on its k = 9 codes (each
+    with the table of the chunk's own spectrum), and K3 on its k = 8, 9
+    and 12 codes (4^8, 4^9 and 4^12 bins).  Returns (K2 shape, K4 shape,
+    K3 shapes)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, histogram
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.screen_scan import (
+        fused_screen_scan,
+        fused_screen_scan_plain,
+    )
+    from kmer_spans_tpu_torch.parallel.pipeline import _rank_mass
+    from kmer_spans_tpu_torch.spans.pipeline import aug_words
+
+    x = nbases_dev[:STREAM_CHUNK]
+    nb = STREAM_CHUNK // BLOCK
+    b2, v2 = (x & 3).reshape(nb, BLOCK), (x < 4).reshape(nb, BLOCK)
+    thr_q = gather.screen_thr_q(
+        torch.tensor(THR, dtype=torch.float32, device=dev))
+    k3 = []
+    for k in (8, 9, 12):
+        codes, kv = blocked_codes(b2, v2, k)
+        codes, kv = codes.reshape(-1), kv.reshape(-1)
+        k3.append(hist_entry(f"stream chunk, k = {k} codes", codes, kv,
+                             1 << (2 * k)))
+        if k == 9:
+            counts = histogram.count_spectrum(codes, kv, k)
+            words = gather.class_table_from_mass(
+                _rank_mass(counts), counts.sum().to(torch.float32))
+            if max_abs_err(gather.word_gather(words, codes, thr_q),
+                           gather.word_gather_plain(words, codes, thr_q)):
+                raise AssertionError("word_gather differs from plain at the "
+                                     "stream chunk shape")
+            t = in_turns(f"word_gather (stream chunk, k = 9 codes, "
+                         f"{codes.numel():,} entries)",
+                         lambda: gather.word_gather(words, codes, thr_q),
+                         lambda: gather.word_gather_plain(words, codes,
+                                                          thr_q))
+            n = codes.numel()
+            k4 = shape_entry("stream chunk, k = 9 codes, 32768 words", t,
+                             bound(n * 8 + words.numel() * 4, n))
+        del codes, kv
+    aug, _ = aug_words(x, 8, BLOCK)
+    flat = aug.reshape(-1)
+    counts = histogram.count_spectrum(flat & 0xFFFF,
+                                      ((flat >> 16) & 1) == 1, 8)
+    words = gather.class_table_from_mass(_rank_mass(counts),
+                                         counts.sum().to(torch.float32))
+    args = (words, flat, thr_q, 4, BLOCK)
+    if max_abs_err(fused_screen_scan(*args), fused_screen_scan_plain(*args)):
+        raise AssertionError("fused_screen_scan differs from plain at the "
+                             "stream chunk shape")
+    t = in_turns(f"fused_screen_scan (stream chunk, {flat.numel():,} aug "
+                 "words)", lambda: fused_screen_scan(*args),
+                 lambda: fused_screen_scan_plain(*args))
+    n = flat.numel()
+    k2 = shape_entry(f"stream chunk, k = 8 aug words, block {BLOCK}", t,
+                     bound(n * 4 + words.numel() * 4 + 4 * (n // BLOCK) * 4,
+                           n))
+    return k2, k4, k3
+
+
+def record_chunks(pipe) -> list:
+    """Keep each chunk's block summaries and top C (the leading arguments
+    of the pipeline's host finish)."""
+    rec = []
+    orig = pipe._finish_chunk
+
+    def keep(*a, **kw):
+        rec.append([np.array(v) for v in a[:5]])
+        return orig(*a, **kw)
+
+    pipe._finish_chunk = keep
+    return rec
+
+
+def stream_run(dev, k, chunks, scoring=None, plain=False, timed=False,
+               **kw):
+    """One StreamingSpanPipeline.run at chunk 2^25, block 8192, C = 128,
+    with the kernels (launches counted from 0 here) or the plain versions;
+    ``timed`` keeps each chunk's stage times (pipe.chunk_times).  Returns
+    (result, per-chunk records, launches, metrics, peak bytes, wall s,
+    pipeline)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
+    from kmer_spans_tpu_torch.parallel.stream import StreamingSpanPipeline
+    from kmer_spans_tpu_torch.utils.metrics import Metrics
+
+    pipe = StreamingSpanPipeline(k, chunk_bases=STREAM_CHUNK, block=BLOCK,
+                                 cand_blocks=STREAM_C, device=dev)
+    rec = record_chunks(pipe)
+    if timed:
+        pipe.chunk_times = []
+    metrics = Metrics()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    with plain_versions(plain):
+        t0 = time.perf_counter()
+        res = pipe.run(chunks, THR, MIN_W, MIN_S, metrics=metrics,
+                       scoring=scoring, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"histogram": histogram.histogram_launches,
+                "fused_screen_scan": screen_scan.launches,
+                "word_gather": gather.launches}
+    return (res, rec, launches, metrics, torch.cuda.max_memory_allocated(),
+            wall, pipe)
+
+
+def stream_walls(metrics) -> str:
+    by = {}
+    for p in metrics.phases:
+        name = "scan" if p.name == "scan_chunk" else p.name
+        by[name] = by.get(name, 0.0) + p.seconds
+    return ", ".join(f"{name} {sec:.3f} s" for name, sec in by.items())
+
+
+def chunk_stage_times(times: list) -> str:
+    """Per-chunk device stage times (CUDA events) and host finish, as the
+    median over the chunks of each pass and the pass's sum."""
+    out = []
+    for phase in ("count", "scan"):
+        rows = [t for t in times if t["phase"] == phase]
+        names = [key for key in rows[0] if key != "phase"]
+        out.append(f"{phase} ({len(rows)} chunks): " + ", ".join(
+            f"{name} {np.median([r[name] for r in rows]):.3f} ms "
+            f"(sum {sum(r[name] for r in rows):.1f})" for name in names))
+    return "; ".join(out)
+
+
+def islands_called(regions, n: int) -> int:
+    import types
+
+    return check_islands(types.SimpleNamespace(fallback=False,
+                                               regions=regions), n)
+
+
+def stream_phase(dev, nbases: np.ndarray, exact: dict, seed: int,
+                 card: str) -> dict:
+    """Phase 12: StreamingSpanPipeline on the card, chunk 2^25, block 8192,
+    C = 128: at k = 8, 9 and 12 with rank scoring and at k = 8 with
+    threshold scoring over the genome (8 chunks), each with the kernels
+    and again with the plain versions (spectra, per-chunk summaries and
+    regions equal), every island called, nothing unresolved, the k = 8
+    and 12 regions equal to phase 9's exact ones bit for bit; a resume
+    after chunk 3; then k = 12 over a 2^30-base genome (32 chunks), its
+    peak memory and per-chunk stage times.  Returns the kernels' launches
+    in the kernels' runs."""
+    import tempfile
+
+    from kmer_spans_tpu_torch.models.scoring import ThresholdScoring
+    from kmer_spans_tpu_torch.ops import _build
+
+    n = nbases.shape[0]
+    nchunks = n // STREAM_CHUNK
+
+    def chunks():
+        for i in range(0, n, STREAM_CHUNK):
+            yield nbases[i:i + STREAM_CHUNK]
+
+    def threshold(counts, total):
+        return ThresholdScoring(counts, 1e-4)
+
+    total = {"histogram": 0, "fused_screen_scan": 0, "word_gather": 0}
+    runs = (("k=8 rank", 8, None, "fused_screen_scan"),
+            ("k=9 rank", 9, None, "word_gather"),
+            ("k=12 rank", 12, None, None),
+            ("k=8 threshold f_t=1e-4", 8, threshold, None))
+    full8 = None
+    for label, k, scoring, screen in runs:
+        got, rec, launches, metrics, peak, wall, pipe = stream_run(
+            dev, k, chunks, scoring)
+        want = {"histogram": nchunks, "fused_screen_scan": 0,
+                "word_gather": 0}
+        if screen:
+            want[screen] = nchunks
+        if launches != want:
+            raise AssertionError(f"stream {label}: launches {launches}, "
+                                 f"expected {want}")
+        for name in total:
+            total[name] += launches[name]
+        ref, ref_rec, _, ref_metrics, ref_peak, ref_wall, _ = stream_run(
+            dev, k, chunks, scoring, plain=True)
+        if not np.array_equal(got.counts_host, ref.counts_host):
+            raise AssertionError(f"stream {label}: spectrum differs from "
+                                 "the plain run")
+        if len(rec) != nchunks or not all(
+                np.array_equal(a, b) for r, w in zip(rec, ref_rec)
+                for a, b in zip(r, w)):
+            raise AssertionError(f"stream {label}: chunk summaries differ "
+                                 "from the plain run")
+        if got.regions != ref.regions or got.unresolved or ref.unresolved:
+            raise AssertionError(f"stream {label}: regions differ from the "
+                                 f"plain run, or unresolved "
+                                 f"{got.unresolved[:3]}")
+        hit = islands_called(got.regions, n)
+        if scoring is None and k in exact:
+            if got.regions != exact[k]:
+                raise AssertionError(f"stream {label}: regions differ from "
+                                     "the exact api path's")
+            same = ", equal to phase 9's exact regions bit for bit"
+        else:
+            same = ""
+        if k == 8 and scoring is None:
+            full8 = got
+        log(f"  stream {label}: {len(got.regions)} regions, all {hit} "
+            f"islands called, {pipe.pull_batches} pull batches, launches "
+            f"{launches}, equal to the plain run{same}")
+        log(f"    kernels: wall {wall:.3f} s ({stream_walls(metrics)}); "
+            f"peak device memory {peak / 2 ** 30:.2f} GiB [{card}]")
+        log(f"    plain versions: wall {ref_wall:.3f} s "
+            f"({stream_walls(ref_metrics)}); peak device memory "
+            f"{ref_peak / 2 ** 30:.2f} GiB")
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        ckpt = f"{tmp}/stream.npz"
+        part = stream_run(dev, 8, chunks, checkpoint_path=ckpt,
+                          stop_after_chunk=3)[0]
+        if len(part.regions) >= len(full8.regions):
+            raise AssertionError("the stopped stream ran to the end")
+        resumed = stream_run(dev, 8, chunks, checkpoint_path=ckpt,
+                             resume=True)[0]
+    if resumed.regions != full8.regions or resumed.unresolved:
+        raise AssertionError("stream resume after chunk 3 differs from the "
+                             "uninterrupted run")
+    log(f"  stream k=8, stopped after chunk 3 and resumed: "
+        f"{len(resumed.regions)} regions, equal to the uninterrupted run")
+
+    t0 = time.perf_counter()
+    big = make_genome(1 << 30, seed)
+    nbig = big.shape[0]
+    log(f"  made the {nbig:,}-base genome in {time.perf_counter() - t0:.1f} s")
+
+    def big_chunks():
+        for i in range(0, nbig, STREAM_CHUNK):
+            yield big[i:i + STREAM_CHUNK]
+
+    res, _, launches, metrics, peak, wall, pipe = stream_run(
+        dev, 12, big_chunks, timed=True)
+    if launches["histogram"] != nbig // STREAM_CHUNK or res.unresolved:
+        raise AssertionError(f"2^30 stream: launches {launches}, unresolved "
+                             f"{res.unresolved[:3]}")
+    total["histogram"] += launches["histogram"]
+    hit = islands_called(res.regions, nbig)
+    log(f"  stream k=12 over {nbig:,} bases ({nbig // STREAM_CHUNK} "
+        f"chunks): {len(res.regions)} regions, all {hit} islands called, "
+        f"{pipe.pull_batches} pull batches, wall {wall:.3f} s "
+        f"({stream_walls(metrics)}), peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    log(f"    per-chunk device stages: {chunk_stage_times(pipe.chunk_times)}")
+    return total
+
+
+def cli_phase(dev) -> None:
+    """Phase 12: the port's CLI on the golden FASTA, stream and spans,
+    with --device cuda, equal to its output with --device cpu."""
+    import io
+    import tempfile
+
+    from kmer_spans_tpu_torch import cli
+    from kmer_spans_tpu_torch.io.fasta import write_fasta
+    from kmer_spans_tpu_torch.ops import _build
+    from kmer_spans_tpu_torch.oracle import golden_genome
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        fa = f"{tmp}/golden.fa"
+        write_fasta(fa, [("chr1", golden_genome())])
+        for argv in (["stream", fa, "-k", "8", "--chunk", "32768",
+                      "--block", "512", "--cand-blocks", "32"],
+                     ["stream", fa, "-k", "12", "--chunk", "65536"],
+                     ["spans", fa, "-k", "8"]):
+            outs = []
+            for device in (str(dev), "cpu"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(io.StringIO()):
+                    cli.main(argv + ["--device", device])
+                outs.append(buf.getvalue())
+            lines = outs[0].splitlines()
+            if outs[0] != outs[1] or len(lines) != 4:
+                raise AssertionError(f"cli {' '.join(argv[:1] + argv[2:])}: "
+                                     f"card {outs[0]!r} != cpu {outs[1]!r}")
+            log(f"  cli {argv[0]} {' '.join(argv[2:])} --device {dev}: "
+                f"{lines[1:]}, equal to --device cpu")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1448,6 +1761,10 @@ def main(argv=None) -> int:
     k3 = more[:1] + k3 + more[1:]  # k = 9 count first: the JSON line's
     k3 += time_spectra(dev, nbases_dev)
     k3 += time_window_k3(dev, nbases_dev, nbases)
+    k2, k4, more = time_stream_shapes(dev, nbases_dev)
+    times["fused_screen_scan"]["shapes"].append(k2)
+    times["word_gather"]["shapes"].append(k4)
+    k3 += more
     times["histogram"] = main_entry(k3)
     err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
@@ -1463,7 +1780,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("phase 9: full-size exact api path")
-    launches["histogram"] += exact_phase(dev, nbases, card)
+    n_k3, exact = exact_phase(dev, nbases, card)
+    launches["histogram"] += n_k3
     torch.cuda.empty_cache()
 
     phase("phase 10: full-size windowed distributions")
@@ -1472,6 +1790,13 @@ def main(argv=None) -> int:
 
     phase("phase 11: full-size transition-score caller")
     lr_phase(dev, nbases, card)
+    torch.cuda.empty_cache()
+
+    phase("phase 12: the streaming pipeline and the CLI on the card")
+    for name, count in stream_phase(dev, nbases, exact, args.seed,
+                                    card).items():
+        launches[name] += count
+    cli_phase(dev)
 
     phase(None)
     if "jax" in sys.modules or any(

@@ -79,6 +79,12 @@ def kmer_to_code(kmer: str) -> int:
     return code
 
 
+def code_to_kmer(code: int, k: int) -> str:
+    """Decode an integer code back to its k-mer string."""
+    return "".join(NUC[(code >> shift) & 3]
+                   for shift in range(2 * (k - 1), -1, -2))
+
+
 def all_kmers(k: int) -> list[str]:
     """All 4^k k-mer strings in 2-bit index order (reference kmer_seq_r)."""
     if k < 1 or k > MAX_K:

@@ -67,35 +67,56 @@ def _rolling(eb: torch.Tensor, ev: torch.Tensor, k: int, B: int):
     return code, kv
 
 
-def blocked_scored(valid2d: torch.Tensor, kmer_valid: torch.Tensor):
+def blocked_scored(valid2d: torch.Tensor, kmer_valid: torch.Tensor,
+                   next_valid=None):
     """Scored mask: k-mer valid AND the next byte exists and is non-N.
 
     The next byte of a block's last column is the next block's first
-    column; the genome's last position is never scored (the reference's
-    never-score-the-segment's-last-k-mer rule).
+    column; the tile's last position reads ``next_valid`` (a bool scalar
+    or one-element tensor: the first byte of a chunk's successor), by
+    default False: the genome's last position is never scored (the
+    reference's never-score-the-segment's-last-k-mer rule).
     """
-    last = torch.zeros((1, 1), dtype=torch.bool, device=valid2d.device)
+    if next_valid is None:
+        last = torch.zeros((1, 1), dtype=torch.bool, device=valid2d.device)
+    else:
+        last = torch.as_tensor(next_valid, device=valid2d.device).reshape(
+            1, 1).to(torch.bool)
     nxt = torch.cat(
         [valid2d[:, 1:], torch.cat([valid2d[1:, :1], last], 0)], 1)
     return kmer_valid & nxt
 
 
 def block_rows_codes(nbases: torch.Tensor, idx: torch.Tensor, k: int,
-                     block: int):
+                     block: int, first=None, next_byte=None):
     """Codes and scored mask of the blocks ``idx`` alone.
 
     nbases: uint8 [nb * block], N as 4; idx: integer [C] block indices.
     Returns (codes int32 [C, block], set to 0 where the k-mer is invalid,
     scored bool [C, block]): rows idx of ``blocked_codes`` (masked) and
     ``blocked_scored`` over the whole genome, computed from a gather of
-    each block, its k-1 halo and the next position (N outside the genome).
+    each block, its k-1 halo and the next position.  Outside nbases the
+    bytes are N, unless ``first`` (uint8 [k-1], the bytes before a chunk)
+    or ``next_byte`` (a uint8 scalar tensor, the byte after it) is given.
     """
     h = k - 1
     n = nbases.shape[0]
     pos = (idx.to(torch.int64)[:, None] * block
            + torch.arange(-h, block + 1, device=nbases.device))
+    ext = nbases
+    if first is not None or next_byte is not None:
+        four = nbases.new_full((1,), 4)
+        head = (four.expand(h) if first is None
+                else torch.as_tensor(first, device=nbases.device).reshape(
+                    h).to(torch.uint8))
+        tail = (four if next_byte is None
+                else torch.as_tensor(next_byte, device=nbases.device)
+                .reshape(1).to(torch.uint8))
+        ext = torch.cat([head, nbases, tail])
+        pos = pos + h
+        n = ext.shape[0]
     inside = (pos >= 0) & (pos < n)
-    x = torch.where(inside, nbases[pos.clamp(0, n - 1)], 4)
+    x = torch.where(inside, ext[pos.clamp(0, n - 1)], 4)
     v = x < 4
     code, kv = _rolling((x & 3).to(torch.int32), v, k, block)
     return torch.where(kv, code, 0), kv & v[:, h + 1:h + 1 + block]
@@ -117,12 +138,13 @@ def blocked_scan_summaries_int(s2d: torch.Tensor, scored2d: torch.Tensor):
     return A[:, -1], Bv[:, -1], A.amax(dim=1), Bv.amax(dim=1)
 
 
-def compose_summaries_int64(tA, tB, maxA, maxB):
+def compose_summaries_int64(tA, tB, maxA, maxB, x0: int = 0):
     """Exact int64 cross-block composition (orders the top-C pull).
 
-    Returns (block_max, block_last) int64 [nb], for initial state 0: the
-    device form of spans/finish.py compose_summaries_exact, equal to it
-    element for element.  The composed prefix transform is (CA, CB) with
+    Returns (block_max, block_last) int64 [nb], for initial state x0 (a
+    chunk's incoming exact carry; 0 at a genome start): the device form of
+    spans/finish.py compose_summaries_exact, equal to it element for
+    element.  The composed prefix transform is (CA, CB) with
     CA = cumsum(tA) and CB = CA + cummax(tB - CA).
 
     The reference composes in f32 through an associative scan, whose
@@ -139,7 +161,7 @@ def compose_summaries_int64(tA, tB, maxA, maxB):
     tB = torch.where(tB <= sent, neg, tB.to(torch.int64))
     maxB = torch.where(maxB <= sent, neg, maxB.to(torch.int64))
     cA = torch.cumsum(tA, 0)
-    block_last = torch.maximum(cA, cA + torch.cummax(tB - cA, 0).values)
-    x_in = torch.cat([block_last.new_zeros(1), block_last[:-1]])
+    block_last = torch.maximum(cA + x0, cA + torch.cummax(tB - cA, 0).values)
+    x_in = torch.cat([block_last.new_full((1,), x0), block_last[:-1]])
     block_max = torch.maximum(x_in + maxA.to(torch.int64), maxB)
     return block_max, block_last

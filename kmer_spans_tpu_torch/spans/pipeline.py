@@ -67,34 +67,44 @@ from ..ops.screen_scan import MAX_BLOCK
 from ..parallel.pipeline import _rank_mass
 
 
-def aug_words(nbases: torch.Tensor, k: int, block: int):
+def aug_words(nbases: torch.Tensor, k: int, block: int, first_bases=None,
+              first_valid=None, next_valid=None):
     """nbases uint8 [nb * block] -> (aug int32 [nb, block], scored bool).
 
     ONE aug word per position (code | kmer_valid << 16 | scored << 17)
-    feeds the count, the screen and the candidate pull.
+    feeds the count, the screen and the candidate pull.  A chunk of a
+    longer sequence passes its k-1 halo (first_bases/first_valid) and its
+    successor's first byte validity (next_valid), as to blocked_codes and
+    blocked_scored; by default the tile is a whole genome.
     """
     nb = nbases.shape[0] // block
     b2 = (nbases & 3).reshape(nb, block)
     v2 = (nbases < 4).reshape(nb, block)
-    aug, kmer_valid = blocked_codes(b2, v2, k)
-    scored = blocked_scored(v2, kmer_valid)
+    aug, kmer_valid = blocked_codes(b2, v2, k, first_bases=first_bases,
+                                    first_valid=first_valid)
+    scored = blocked_scored(v2, kmer_valid, next_valid=next_valid)
     aug |= kmer_valid.to(torch.int32) << 16
     aug |= scored.to(torch.int32) << 17
     return aug, scored
 
 
-def _top_blocks(tA, tB, maxA, maxB, C: int) -> torch.Tensor:
+def _top_blocks(tA, tB, maxA, maxB, C: int, x_in: int = 0) -> torch.Tensor:
     """Indices (ascending, int64) of the C blocks of highest run max.
 
     Blocks chain into a run while the composed score stays positive
     across their boundary; every block of a run gets the run's max.  Ties
-    go to the lower block index.
+    go to the lower block index.  x_in is the exact composed bound
+    entering block 0 (a chunk's carry): it seeds the composition, and
+    block 0 then continues the previous chunk's run (linked[0]), which
+    still opens the first run of this chunk's blocks.
     """
-    block_max, block_last = compose_summaries_int64(tA, tB, maxA, maxB)
+    block_max, block_last = compose_summaries_int64(tA, tB, maxA, maxB,
+                                                    x0=x_in)
     nb = block_max.shape[0]
     linked = torch.zeros(nb, dtype=torch.bool, device=block_max.device)
+    linked[0] = x_in > 0
     linked[1:] = block_last[:-1] > 0
-    run = torch.cumsum(~linked, 0) - 1
+    run = torch.cumsum(~linked, 0) - (~linked[0]).to(torch.int64)
     run_max = torch.full_like(block_max, -(1 << 62)).scatter_reduce(
         0, run, block_max, "amax")[run]
     top = torch.sort(run_max, descending=True, stable=True).indices[:C]

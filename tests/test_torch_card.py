@@ -525,3 +525,77 @@ def test_tr_pipeline_on_card_equals_cpu(card, k):
     want = api.lr_regions(seq, (k, 100), kms, ks, ts, device="cpu")
     assert len(got.regions) >= 1
     assert np.array_equal(got.regions, want.regions)
+
+
+def _stream_genome(seed, n):
+    """Random bases (N as 4) with AG islands and N gaps across the 2^19
+    chunk edges."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    g[rng.random(n) < 0.001] = 4
+    for s in range((1 << 19) - 1500, n - 4000, 1 << 19):
+        g[s:s + 3000] = np.tile(np.array([0, 3], np.uint8), 1500)
+        g[s + 200_000:s + 200_100] = 4
+    return g
+
+
+@pytest.mark.parametrize("k,block,screen", [
+    (8, 8192, "fused_screen_scan"), (4, 512, "word_gather"),
+    (9, 8192, "word_gather"), (12, 8192, None)])
+def test_stream_kernels_match_plain(card, k, block, screen, monkeypatch):
+    """The stream on the card (K3 count; K2, K4 or the row gather) against
+    the same run with the plain versions and against the CPU: spectra,
+    per-chunk summaries, regions."""
+    from kmer_spans_tpu_torch.parallel.stream import StreamingSpanPipeline
+
+    g = _stream_genome(k, 1 << 21)
+    nchunks = 4
+
+    def chunks():
+        for i in range(0, g.size, 1 << 19):
+            yield g[i:i + (1 << 19)]
+
+    def run(dev):
+        # the margins cover the excursion after a 3000-base island
+        pipe = StreamingSpanPipeline(k, chunk_bases=1 << 19, block=block,
+                                     cand_blocks=8,
+                                     margin_blocks=(1 << 14) // block,
+                                     device=dev)
+        rec = []
+        orig = pipe._finish_chunk
+
+        def keep(*a, **kw):
+            rec.append([np.array(v) for v in a[:5]])
+            return orig(*a, **kw)
+
+        pipe._finish_chunk = keep
+        res = pipe.run(chunks, 0.75, 100, 20.0)
+        return res, rec
+
+    before = (histogram.histogram_launches, screen_scan.launches,
+              gather.launches)
+    got, rec = run(card)
+    launched = (histogram.histogram_launches - before[0],
+                screen_scan.launches - before[1], gather.launches - before[2])
+    assert launched == (nchunks,
+                        nchunks if screen == "fused_screen_scan" else 0,
+                        nchunks if screen == "word_gather" else 0)
+    assert got.unresolved == [] and len(got.regions) >= 3
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    monkeypatch.setattr(screen_scan, "fused_screen_scan",
+                        fused_screen_scan_plain)
+    monkeypatch.setattr(gather, "word_gather", word_gather_plain)
+    for want, want_rec in (run(card), run("cpu")):
+        assert np.array_equal(got.counts_host, want.counts_host)
+        assert got.regions == want.regions
+        assert got.unresolved == want.unresolved
+        for r, w in zip(rec, want_rec, strict=True):
+            assert all(np.array_equal(a, b) for a, b in zip(r, w))
+
+
+def test_stream_needs_a_card_for_cuda(card, monkeypatch):
+    from kmer_spans_tpu_torch.parallel.stream import StreamingSpanPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingSpanPipeline(8, chunk_bases=1 << 16, device="cuda")

@@ -60,6 +60,11 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax_package():
             p.__path__, "kmer_spans_tpu_torch.")]
         for m in mods:
             importlib.import_module(m)
+        assert {"kmer_spans_tpu_torch.cli",
+                "kmer_spans_tpu_torch.parallel.stream",
+                "kmer_spans_tpu_torch.ops.rowgather",
+                "kmer_spans_tpu_torch.io.checkpoint",
+                "kmer_spans_tpu_torch.utils.metrics"} <= set(mods), mods
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
