@@ -93,7 +93,22 @@ Run from the repository root.  Phases, each of which raises on failure:
      2^30-base genome (32 chunks) with its peak device memory and each
      chunk's stage times (CUDA events); and the CLI's stream and spans
      on the golden genome with --device cuda, equal to --device cpu.
-     Phase 6 times K2, K3 and K4 at the stream's chunk shapes too.
+     Phase 6 times K2, K3 and K4 at the stream's chunk shapes too;
+ 13. wide codes on the same genome: make_wide_pm_pipeline at k = 17 and
+     23 (K3 once a call) and the sort route at k = 17
+     (make_wide_span_pipeline: K3 twice, K4; device_sparse_spectrum;
+     finish_wide_spans), each with the kernels and with the plain
+     versions (vectors and regions equal), launches counted, every
+     island called, the sort route's regions equal to the pm route's;
+     t_list, the listed runs, the code build (CUDA events), device step,
+     pull, host finish and peak memory logged; api.kmer_wide_regions at
+     k = 17 over the genome (n_words the valid k-mers, regions equal to
+     the pipeline's), over its first 2^20 bases and over the golden
+     genome (both equal to the oracle with a SparseRanks lookup); and the
+     CLI's wide with --device cuda, equal to --device cpu.  Phase 6 times
+     K3 at the wide shapes (the k = 17 pm run lengths, 256 bins with one
+     hot bin; the wide sort screen's two run histograms) and K4 at the
+     wide sort entries.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -1466,6 +1481,67 @@ def time_stream_shapes(dev, nbases_dev) -> tuple[dict, dict, list]:
     return k2, k4, k3
 
 
+def time_wide_shapes(dev, nbases_dev) -> tuple[list, dict]:
+    """Phase 6 at the wide paths' shapes, k = 17 over the genome (4^17 >>
+    n: nearly every k-mer is unique, so nearly every run has v = 1 and
+    every valid position is a run head): K3 on the wide pm screen's run
+    lengths (256 bins, one hot bin; every form) and on the wide sort
+    screen's two run histograms (65536 bins each, the same skew), each
+    beside the mask it needs; K4 on the wide sort screen's entries (16384
+    words).  Returns (K3 shapes, K4 shape)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, sortscreen
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes_wide
+    from kmer_spans_tpu_torch.ops.pmscreen import pm_params, sorted_runs
+
+    k = 17
+    n = nbases_dev.shape[0]
+    nb = n // BLOCK
+    codes, kv = blocked_codes_wide((nbases_dev & 3).reshape(nb, BLOCK),
+                                   (nbases_dev < 4).reshape(nb, BLOCK), k)
+    skey, _, head, v, real = sorted_runs(codes.reshape(-1), kv.reshape(-1),
+                                         k)
+    total = kv.sum(dtype=torch.int32)
+    del codes, kv
+    hb = ((skey >> (2 * k - 8)) & 255).to(torch.int32)
+    del skey
+    mask = head & real
+    nbins = pm_params(k, None, n=n, wide=True)[3]
+    runs = int(mask.sum())
+    log(f"  wide k = 17 runs: {runs:,} of {int(total):,} valid k-mers, "
+        f"{int((mask & (v == 1)).sum()):,} of them with v = 1 (one hot bin)")
+    k3 = [hist_entry("wide k = 17 pm run lengths", torch.clamp(
+        v, max=nbins - 1), mask, nbins, more=(("mask_ms",
+                                                lambda: head & real),))]
+    del head, real
+    vmax, v2_ = sortscreen.VMAX, sortscreen.V2
+    k3.append(hist_entry("wide k = 17 sort screen, runs by value",
+                         torch.clamp(v, max=vmax - 1), mask, vmax))
+    k3.append(hist_entry("wide k = 17 sort screen, runs by value and high "
+                         "byte", torch.clamp(v, max=v2_ - 1) * 256 + hb,
+                         mask & (v < v2_), v2_ * 256))
+    words = sortscreen.rank_ub_tables(
+        *sortscreen.rank_ub_histograms(v, hb, mask, vmax, v2_), total, vmax,
+        v2_)
+    entry = sortscreen.rank_ub_entries(v, hb, vmax, v2_)
+    del v, hb, mask
+    thr_q = gather.screen_thr_q(
+        torch.tensor(THR, dtype=torch.float32, device=dev))
+    if max_abs_err(gather.word_gather(words, entry, thr_q),
+                   gather.word_gather_plain(words, entry, thr_q)):
+        raise AssertionError("word_gather differs from plain at the wide "
+                             "sort screen's entries")
+    t = in_turns(f"word_gather (wide k = 17 sort entries, {entry.numel():,} "
+                 f"entries, {words.numel()} words)",
+                 lambda: gather.word_gather(words, entry, thr_q),
+                 lambda: gather.word_gather_plain(words, entry, thr_q))
+    m = entry.numel()
+    k4 = shape_entry(f"wide k = 17 sort entries, {words.numel()} words", t,
+                     bound(m * 8 + words.numel() * 4, m))
+    return k3, k4
+
+
 def record_chunks(pipe) -> list:
     """Keep each chunk's block summaries and top C (the leading arguments
     of the pipeline's host finish)."""
@@ -1659,9 +1735,157 @@ def stream_phase(dev, nbases: np.ndarray, exact: dict, seed: int,
     return total
 
 
+def wide_phase(dev, nbases: np.ndarray, card: str) -> dict:
+    """Phase 13: wide codes on the genome.  The wide pm pipeline at k = 17
+    and 23 (make_wide_pm_pipeline -> unpack_pm_outputs -> finish_pm_spans)
+    and the wide sort route at k = 17 (make_wide_span_pipeline,
+    device_sparse_spectrum, finish_wide_spans), each with the kernels and
+    with the plain versions (vectors and regions equal), launch counts
+    read around the kernels' run, every island called, the sort route's
+    regions equal to the pm route's; then api.kmer_wide_regions at k = 17
+    over the genome (n_words the valid k-mers, regions equal to the
+    pipeline's, spectrum equal to the sort route's), over its first 2^20
+    bases and over the golden genome, both equal to the sequential oracle
+    with a SparseRanks lookup.  Returns the kernels' launches."""
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.ops import gather, histogram
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes_wide
+    from kmer_spans_tpu_torch.ops.convert import to_tensor
+    from kmer_spans_tpu_torch.oracle import (
+        count_spectrum_sparse,
+        find_regions,
+        golden_genome,
+    )
+    from kmer_spans_tpu_torch.parallel.device import device_sparse_spectrum
+    from kmer_spans_tpu_torch.spans import finish, pm_finish
+    from kmer_spans_tpu_torch.spans.pipeline import make_wide_span_pipeline
+    from kmer_spans_tpu_torch.spans.pm_pipeline import make_wide_pm_pipeline
+    from kmer_spans_tpu_torch.stats.ranks import SparseRanks
+
+    n = nbases.shape[0]
+    cand = cand_blocks(n)
+    nbases_dev = to_tensor(nbases, dev)
+    b2 = (nbases_dev & 3).reshape(-1, BLOCK)
+    v2 = (nbases_dev < 4).reshape(-1, BLOCK)
+    launches = {"histogram": 0, "word_gather": 0}
+
+    def kernels_run(fn, finish_fn, label, want):
+        """The kernels' run with the counts set to 0 just before it and
+        read just after, then the kernels again and the plain versions."""
+        torch.cuda.empty_cache()
+        zero_launch_counts()
+        runs = [timed_run(fn, nbases_dev, finish_fn, plain=False)]
+        got = (histogram.histogram_launches, gather.launches)
+        if got != want:
+            raise AssertionError(f"{label}: launches (K3, K4) {got}, "
+                                 f"expected {want}")
+        launches["histogram"] += got[0]
+        launches["word_gather"] += got[1]
+        return runs + [timed_run(fn, nbases_dev, finish_fn, plain=p)
+                       for p in (False, True)]
+
+    pm_regions = {}
+    for k in (17, 23):
+        build = time_ms(lambda: blocked_codes_wide(b2, v2, k), 3)
+        fn, meta = make_wide_pm_pipeline(k, block=BLOCK, cand_blocks=cand,
+                                         device=dev)
+        outs = []
+
+        def finish_pm(host):
+            out = pm_finish.unpack_pm_outputs(host, n, meta)
+            outs.append(out)
+            return pm_finish.finish_pm_spans(out, n, meta, THR, MIN_W, MIN_S)
+
+        label = f"wide pm k={k} n={n:,} block={BLOCK} cand={cand}"
+        runs = kernels_run(fn, finish_pm, label, (1, 0))
+        out = outs[0]
+        if out["total"] != valid_kmers(nbases, k):
+            raise AssertionError(f"wide pm k={k}: total {out['total']}")
+        log(f"  wide pm k={k}: t_list {out['t_list']}, "
+            f"{out['list_count']:,} listed runs (cap {meta['list_cap']}), "
+            f"{meta['nbins']} value bins, total {out['total']:,}; code build "
+            f"{build:.2f} ms (CUDA events) [{card}]")
+        compare_runs(label, card, n, runs)
+        pm_regions[k] = runs[0][1].regions
+
+    k = 17
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spectrum = device_sparse_spectrum(nbases_dev, k, dev)
+    t_spec = time.perf_counter() - t0
+    if spectrum[2] != valid_kmers(nbases, k) or \
+            spectrum[1].sum() != spectrum[2]:
+        raise AssertionError(f"device_sparse_spectrum k={k}: total "
+                             f"{spectrum[2]}")
+    log(f"  device_sparse_spectrum k={k}: {spectrum[0].size:,} distinct of "
+        f"{spectrum[2]:,} k-mers in {t_spec:.3f} s (to the host), peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB [{card}]")
+    fn = make_wide_span_pipeline(k, block=BLOCK, cand_blocks=cand,
+                                 device=dev)
+
+    def finish_sort(host):
+        out = finish.unpack_wide_outputs(host, n, BLOCK, cand)
+        return finish.finish_wide_spans(out, n, k, THR, MIN_W, MIN_S,
+                                        spectrum, block=BLOCK)
+
+    label = f"wide sort k={k} n={n:,} block={BLOCK} cand={cand}"
+    runs = kernels_run(fn, finish_sort, label, (2, 1))
+    compare_runs(label, card, n, runs)
+    if runs[0][1].regions != pm_regions[k]:
+        raise AssertionError("wide sort route: regions differ from the pm "
+                             "route's")
+    log(f"  wide sort k={k}: regions equal to the pm route's bit for bit")
+    del b2, v2, nbases_dev
+    torch.cuda.empty_cache()
+
+    seq = PackedSeq(bases=nbases & 3, valid=nbases < 4)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    api.exact_fallbacks = 0
+    t0 = time.perf_counter()
+    res = api.kmer_wide_regions(seq, k, MIN_W, MIN_S, thr=THR, device=dev)
+    wall = time.perf_counter() - t0
+    if histogram.histogram_launches < 1:
+        raise AssertionError("kmer_wide_regions skipped the histogram")
+    launches["histogram"] += histogram.histogram_launches
+    got = [(int(r["seq_id"]), int(r["beg"]), int(r["end"]), float(r["score"]))
+           for r in res.regions]
+    if res.n_words != valid_kmers(nbases, k) or got != pm_regions[k] or \
+            not np.array_equal(res.spectrum_codes, spectrum[0]) or \
+            not np.array_equal(res.spectrum_counts, spectrum[1]):
+        raise AssertionError("kmer_wide_regions k=17 differs from the "
+                             "pipelines")
+    log(f"  kmer_wide_regions k={k} over {n:,} bases: {len(got)} regions, "
+        f"n_words {res.n_words:,}, {res.spectrum_codes.size:,} distinct, "
+        f"equal to the pipeline and the sparse spectrum; wall {wall:.3f} s, "
+        f"{api.exact_fallbacks} reruns, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    for label, x in (("its first 2^20 bases", PackedSeq(
+            bases=nbases[:1 << 20] & 3, valid=nbases[:1 << 20] < 4)),
+            ("the golden genome", golden_genome())):
+        res = api.kmer_wide_regions(x, k, MIN_W, MIN_S, thr=THR, device=dev)
+        ucodes, ucounts, nw = count_spectrum_sparse(x, k)
+        want = find_regions(x, 0, MIN_W, MIN_S, SparseRanks(ucodes, ucounts),
+                            k, THR)
+        got = [(int(r["seq_id"]), int(r["beg"]), int(r["end"]),
+                float(r["score"])) for r in res.regions]
+        if got != want or not got or res.n_words != nw or \
+                not np.array_equal(res.spectrum_codes, ucodes):
+            raise AssertionError(f"kmer_wide_regions k={k} over {label}: "
+                                 f"{got[:3]} != oracle {want[:3]}")
+        log(f"  kmer_wide_regions k={k} over {label}: {len(got)} regions, "
+            f"first {got[0][1:]}, == oracle with SparseRanks")
+    return launches
+
+
 def cli_phase(dev) -> None:
-    """Phase 12: the port's CLI on the golden FASTA, stream and spans,
-    with --device cuda, equal to its output with --device cpu."""
+    """Phases 12 and 13: the port's CLI on the golden FASTA, stream, spans
+    and wide, with --device cuda, equal to its output with --device cpu."""
     import io
     import tempfile
 
@@ -1676,7 +1900,8 @@ def cli_phase(dev) -> None:
         for argv in (["stream", fa, "-k", "8", "--chunk", "32768",
                       "--block", "512", "--cand-blocks", "32"],
                      ["stream", fa, "-k", "12", "--chunk", "65536"],
-                     ["spans", fa, "-k", "8"]):
+                     ["spans", fa, "-k", "8"],
+                     ["wide", fa, "-k", "17"]):
             outs = []
             for device in (str(dev), "cpu"):
                 buf = io.StringIO()
@@ -1765,6 +1990,10 @@ def main(argv=None) -> int:
     times["fused_screen_scan"]["shapes"].append(k2)
     times["word_gather"]["shapes"].append(k4)
     k3 += more
+    torch.cuda.empty_cache()
+    more, k4 = time_wide_shapes(dev, nbases_dev)
+    times["word_gather"]["shapes"].append(k4)
+    k3 += more
     times["histogram"] = main_entry(k3)
     err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
@@ -1795,6 +2024,11 @@ def main(argv=None) -> int:
     phase("phase 12: the streaming pipeline and the CLI on the card")
     for name, count in stream_phase(dev, nbases, exact, args.seed,
                                     card).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+
+    phase("phase 13: wide codes (16 <= k <= 23) and the CLI on the card")
+    for name, count in wide_phase(dev, nbases, card).items():
         launches[name] += count
     cli_phase(dev)
 

@@ -19,6 +19,9 @@ in place of the reference's ``backend``:
   * lr_regions: the transition-score caller (spans/tr_pipeline.py), its
     integer screen on the device and the exact f64 replay of its
     candidate blocks on the host;
+  * kmer_wide_regions: rank-scored spans at wide k (16 <= k <= 23), the
+    wide pm pipeline over all sequences at once, with the sparse spectrum
+    counted on the device;
   * window_kmer_dist: windowed k-mer count distributions (ops/window.py,
     parallel/window_stream.py; K3 for the count histogram);
   * kmer_seq, kmers_to_file and read_kmers.
@@ -32,11 +35,12 @@ ported; nothing here runs on the CPU unless device="cpu" is asked for.
 Where the fast device step cannot cover every candidate, the call reruns
 it on the same device and counts each rerun in ``exact_fallbacks``: with
 twice the candidate capacity, until every candidate block is pulled, or,
-at k >= 10, with a list capacity doubled until the high-count run list
-fits.  (The reference instead falls through to its exact path; the
-regions are the same either way.)  At k >= 10 a smallv run-list overflow
-first retries once with the packed-key strategy, as the reference does;
-that retry is not counted.
+at k >= 10 (kmer_wide_regions too), with a list capacity doubled until
+the high-count run list fits.  (The reference instead falls through to its
+exact path, or at wide k to its CPU oracle; the regions are the same
+either way.)  At 10 <= k <= 14 a smallv run-list overflow first retries
+once with the packed-key strategy, as the reference does; that retry is
+not counted.
 """
 
 from __future__ import annotations
@@ -59,10 +63,12 @@ from .models.scoring import (
     ThresholdScoring,
     WeightScoring,
 )
+from .ops.blocked import WIDE_MAX_K
 from .ops.pmscreen import pm_params
 from .parallel.device import (
     bucket_size,
     device_count_spectrum,
+    device_sparse_spectrum,
     device_tr_regions,
     device_window_dist,
     staged_nbases,
@@ -74,7 +80,7 @@ from .spans.pipeline import (
     quantize_weight_table,
 )
 from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
-from .spans.pm_pipeline import make_pm_span_pipeline
+from .spans.pm_pipeline import make_pm_span_pipeline, make_wide_pm_pipeline
 from .stats.ranks import cumulative_mass, spectrum_median_freq
 from .utils import native
 
@@ -512,6 +518,23 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
             regions=_as_region_array([]),
             w_rank=np.zeros(1 << (2 * k)),
         )
+    arr, offsets = _concatenated(kept, block)
+    nbases = torch.from_numpy(arr).to(device)
+    run = _pm_regions if k >= 10 else _class_regions
+    res, counts, total = run(nbases, arr, k, min_w, min_score, thr, device,
+                             block, cand_blocks)
+    return RegionResult(
+        n=np.array([float(total), 0.0]),
+        counts=counts,
+        regions=_as_region_array(_per_sequence(res.regions, kept, offsets)),
+        w_rank=cumulative_mass(counts).astype(np.float64) / max(total, 1),
+    )
+
+
+def _concatenated(kept, block: int):
+    """The kept sequences joined by single-N separators, N-padded to a
+    power of two >= 8192 rounded up to a multiple of ``block``: (uint8
+    bases with N as 4, the 0-based start of each sequence)."""
     total_len = sum(p.n for _, p in kept) + len(kept) - 1
     npad = max(block, 1 << 13)
     while npad < total_len:
@@ -526,21 +549,17 @@ def _low_comp_fast(packed, k, min_w, min_score, thr, device, block=8192,
         offsets.append(pos)
         arr[pos:pos + p.n] = np.where(p.valid, p.bases, 4)
         pos += p.n
-    nbases = torch.from_numpy(arr).to(device)
-    run = _pm_regions if k >= 10 else _class_regions
-    res, counts, total = run(nbases, arr, k, min_w, min_score, thr, device,
-                             block, cand_blocks)
-    regions = []
-    for _, beg, end, score in res.regions:
+    return arr, offsets
+
+
+def _per_sequence(regions, kept, offsets) -> list:
+    """Global regions mapped back to (seq_id, local 1-based) coordinates."""
+    out = []
+    for _, beg, end, score in regions:
         j = bisect.bisect_right(offsets, beg - 1) - 1
         off = offsets[j]
-        regions.append((kept[j][0], beg - off, end - off, score))
-    return RegionResult(
-        n=np.array([float(total), 0.0]),
-        counts=counts,
-        regions=_as_region_array(regions),
-        w_rank=cumulative_mass(counts).astype(np.float64) / max(total, 1),
-    )
+        out.append((kept[j][0], beg - off, end - off, score))
+    return out
 
 
 def _class_regions(nbases, arr, k, min_w, min_score, thr, device, block,
@@ -570,26 +589,44 @@ def _pm_regions(nbases, arr, k, min_w, min_score, thr, device, block,
                 cand_blocks):
     """10 <= k <= 15: the pm pipeline (reference api.py:427-453).
 
-    A smallv run-list overflow at k <= 14 retries once with the packed
-    key; a list still overflowing reruns with its capacity doubled until
-    the true run count fits, a missed candidate with twice the candidate
-    capacity.  counts come from the host recount, as in the reference:
-    the replay needs none, only the result's counts/w_rank fields do.
+    counts come from the host recount, as in the reference: the replay
+    needs none, only the result's counts/w_rank fields do.
     Returns (finished spans, counts int64, total).
     """
+    res, out = _pm_device_regions(nbases, arr.shape[0], k, min_w, min_score,
+                                  thr, device, block, cand_blocks)
+    counts, _ = native.host_spectrum(arr, k)
+    return res, np.asarray(counts).astype(np.int64), int(out["total"])
+
+
+def _pm_device_regions(nbases, npad, k, min_w, min_score, thr, device,
+                       block, cand_blocks):
+    """The pm pipeline, narrow (10 <= k <= 15) or wide (16 <= k <= 23),
+    rerun on the same device until it covers every candidate.
+
+    A smallv run-list overflow at k <= 14 retries once with the packed
+    key, uncounted (the reference's retry); a list still overflowing
+    reruns with its capacity doubled until the true run count fits, a
+    missed candidate with twice the candidate capacity, each rerun counted
+    in ``exact_fallbacks``.  Returns (finished spans, the decoded dict).
+    """
     global exact_fallbacks
-    npad = arr.shape[0]
     nb = npad // block
     cand = min(cand_blocks, nb)
     strategy, list_cap = None, None
     while True:
-        fn, meta = make_pm_span_pipeline(
-            k, block=block, cand_blocks=cand, list_cap=list_cap,
-            strategy=strategy, device=device)
+        if k > 15:
+            fn, meta = make_wide_pm_pipeline(
+                k, block=block, cand_blocks=cand, list_cap=list_cap,
+                device=device)
+        else:
+            fn, meta = make_pm_span_pipeline(
+                k, block=block, cand_blocks=cand, list_cap=list_cap,
+                strategy=strategy, device=device)
         out = unpack_pm_outputs(fn(nbases, thr).cpu().numpy(), npad, meta)
         res = finish_pm_spans(out, npad, meta, thr, min_w, min_score)
         if not res.fallback:
-            break
+            return res, out
         overflow = out["list_count"] > meta["list_cap"]
         if (overflow and strategy is None and k <= 14
                 and pm_params(k, None, n=npad)[0] == "smallv"):
@@ -605,5 +642,68 @@ def _pm_regions(nbases, arr, k, min_w, min_score, thr, device, block,
         else:
             cand = min(2 * cand, nb)
         exact_fallbacks += 1
-    counts, _ = native.host_spectrum(arr, k)
-    return res, np.asarray(counts).astype(np.int64), int(out["total"])
+
+
+# ---------------------------------------------------------------------------
+# Wide k (16..23)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WideRegionResult:
+    """kmer_wide_regions output: regions + the SPARSE spectrum.
+
+    At k >= 16 a dense 4^k counts array cannot exist (the reference's own
+    MAX_K tops out below this — SURVEY §2.1 #4), so the spectrum is
+    (codes, counts) over distinct k-mers only.
+    """
+
+    regions: np.ndarray          # structured (_REGION_DTYPE)
+    spectrum_codes: np.ndarray   # int64, distinct codes ascending
+    spectrum_counts: np.ndarray  # int64
+    n_words: int                 # total counted k-mers
+
+
+def kmer_wide_regions(
+    seqs, k: int, min_w: int, min_score: float, thr: float = 0.75,
+    device="cuda", block: int = 8192, cand_blocks: int = 256,
+    with_spectrum: bool = True,
+) -> WideRegionResult:
+    """Rank-scored spans for wide k (16..23), past the reference's MAX_K
+    (reference api.kmer_wide_regions; the semantics of
+    kmer_low_comp_regions, src/kmer_spans.c:548-621), on ``device``.
+
+    One device step over all sequences at once (concatenated with N
+    separators): the wide pm pipeline (spans/pm_pipeline.py
+    make_wide_pm_pipeline), whose candidates replay on the host through
+    the exact f64 chain from the device's exact rank mass; no spectrum is
+    needed for the regions.  A list or candidate overflow reruns on the
+    same device, counted in ``exact_fallbacks``; the reference serves it
+    with its CPU oracle instead.  with_spectrum=True adds the sparse
+    spectrum, counted on the device (parallel/device.py
+    device_sparse_spectrum) and checked against the device total;
+    otherwise the spectrum fields are empty and n_words is the device
+    total.
+    """
+    if not 16 <= k <= WIDE_MAX_K:
+        raise ValueError(f"kmer_wide_regions needs 16 <= k <= {WIDE_MAX_K}")
+    if not 0.0 < thr < 1.0:
+        raise ValueError("the threshold must be between 0 and 1")
+    dev = resolve_device(device)
+    kept = [(i, p) for i, p in enumerate(_as_seq_list(seqs)) if p.n >= k]
+    empty = np.zeros(0, np.int64)
+    if not kept:
+        return WideRegionResult(_as_region_array([]), empty, empty, 0)
+    arr, offsets = _concatenated(kept, block)
+    nbases = torch.from_numpy(arr).to(dev)
+    res, out = _pm_device_regions(nbases, arr.shape[0], k, min_w, min_score,
+                                  thr, dev, block, cand_blocks)
+    ucodes = ucounts = empty
+    n_words = out["total"]
+    if with_spectrum:
+        ucodes, ucounts, n_words = device_sparse_spectrum(nbases, k, dev)
+        if n_words != out["total"]:
+            raise AssertionError(f"device total {out['total']} != sparse "
+                                 f"spectrum total {n_words}")
+    return WideRegionResult(
+        _as_region_array(_per_sequence(res.regions, kept, offsets)),
+        ucodes, ucounts, n_words)

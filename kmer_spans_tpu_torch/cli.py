@@ -7,7 +7,7 @@ plain versions) in place of ``--backend``:
   count    k-mer spectrum of FASTA input (optionally write .bin spectrum)
   spans    low-complexity / repeat span calling
   stream   span calling through the chunked streaming pipeline
-  wide     span calling at wide k (16..23): not ported yet
+  wide     span calling at wide k (16..23; sparse spectrum)
   regions  arbitrary-weight span calling from a scores TSV
   windows  sliding-window k-mer occurrence distributions
   kmers    print all 4^k k-mers in 2-bit index order
@@ -167,9 +167,16 @@ def cmd_stream(args):
 
 
 def cmd_wide(args):
-    raise NotImplementedError(
-        "wide k (16..23) is not ported yet: ROADMAP.md queue 1, item 3 "
-        "(wide codes)")
+    from . import api
+
+    names, seqs = _load_seqs(args.fasta, args.min_l)
+    res = api.kmer_wide_regions(
+        seqs, args.k, args.min_width, args.min_score, thr=args.thr,
+        device=args.device)
+    _write_regions(res.regions, lambda i: names[i])
+    print(f"# {len(res.regions)} regions, {res.n_words} k-mers, "
+          f"{len(res.spectrum_codes)} distinct (sparse spectrum)",
+          file=sys.stderr)
 
 
 def cmd_regions(args):
@@ -283,7 +290,7 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_stream)
 
     sp = sub.add_parser(
-        "wide", help="span calling at wide k (16..23; not ported yet)")
+        "wide", help="span calling at wide k (16..23; sparse spectrum)")
     _add_common(sp)
     sp.add_argument("--thr", type=float, default=0.75)
     sp.add_argument("--min-width", type=int, default=100)

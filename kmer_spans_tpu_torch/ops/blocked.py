@@ -1,7 +1,8 @@
 """Blocked genome ops: the genome as (nb, block) tiles of int32/bool tensors.
 
 Counterpart of ``kmer_spans_tpu/ops/blocked.py`` for the span pipelines
-and the spectrum count (1 <= k <= 15): rolling codes with the k-1 halo
+and the spectrum count (1 <= k <= 15; int64 wide codes for 16 <= k <= 23):
+rolling codes with the k-1 halo
 (of the whole genome, or of chosen blocks alone), the scored mask, the
 integer per-block max-plus summaries (the plain version that K2 fuses)
 and their cross-block composition.  Plain PyTorch; every function
@@ -17,6 +18,9 @@ import torch
 #: decodes as -inf on the host.
 SCREEN_NEG = -(1 << 30)
 INT_INF = 1 << 30
+#: widest k of the wide codes: 2k <= 46 bits (the reference's int32 pair
+#: holds bits 16..2k-1 below 2^30)
+WIDE_MAX_K = 23
 
 
 def halo_blocks(x: torch.Tensor, h: int, fill=0, first=None) -> torch.Tensor:
@@ -49,6 +53,25 @@ def blocked_codes(bases2d: torch.Tensor, valid2d: torch.Tensor, k: int,
     """
     h = k - 1
     return _rolling(halo_blocks(bases2d.to(torch.int32), h,
+                                first=first_bases),
+                    halo_blocks(valid2d, h, fill=False, first=first_valid),
+                    k, bases2d.shape[1])
+
+
+def blocked_codes_wide(bases2d: torch.Tensor, valid2d: torch.Tensor, k: int,
+                       first_bases=None, first_valid=None):
+    """blocked_codes for wide k, 16 <= k <= WIDE_MAX_K: int64 codes.
+
+    A wide code needs 2k > 31 bits.  The reference carries it as an int32
+    pair, hi = bits 16..2k-1 and lo = the low 16 bits; here it is one
+    int64 code equal to (hi << 16) | lo at every position, the junk of
+    invalid positions included (an N reads as base 0).
+    Returns (codes int64 [nb, B], kmer_valid bool [nb, B]).
+    """
+    if not 16 <= k <= WIDE_MAX_K:
+        raise ValueError(f"wide codes need 16 <= k <= {WIDE_MAX_K}, got {k}")
+    h = k - 1
+    return _rolling(halo_blocks(bases2d.to(torch.int64), h,
                                 first=first_bases),
                     halo_blocks(valid2d, h, fill=False, first=first_valid),
                     k, bases2d.shape[1])

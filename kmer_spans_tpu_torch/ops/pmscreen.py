@@ -1,4 +1,4 @@
-"""Exact-mass sort screen for 10 <= k <= 15: every position's rank mass pm.
+"""Exact-mass sort screen for 10 <= k <= 23: every position's rank mass pm.
 
 Counterpart of ``kmer_spans_tpu/ops/pmscreen.py`` (which imports JAX, so
 the port keeps its own copy of the pure-Python strategy and layout
@@ -27,6 +27,10 @@ Sorts, cumsums and scans are library calls (torch.sort(stable=True) where
 the reference's lax.sort is stable).  The packed key is built in int64:
 torch has no CUDA sort for uint32, and int64 keeps the uint32 order.
 
+Wide codes (16 <= k <= 23, pm_sort_screen_wide) sort as one int64 key,
+where the reference sorts its (hi, lo) int32 pair with two keys; the
+order, and so every output, is the same.
+
 One deliberate difference: ``_extract_list``'s group-min compaction uses
 groups of G = the largest power of two <= min(t_list, 8) positions, where
 the reference takes G = 4 for every t_list < 8.  Flagged run heads sit at
@@ -42,6 +46,7 @@ import math
 import torch
 
 from . import histogram
+from .blocked import WIDE_MAX_K
 from .gather import SCREEN_SCALE
 
 #: smallv strategy: values 1..SMALLV_T-1 get exact device pm via
@@ -164,13 +169,15 @@ def _run_lengths(head: torch.Tensor) -> torch.Tensor:
 def sorted_runs(codes: torch.Tensor, kmer_valid: torch.Tensor, k: int):
     """Stable code sort of the positions, and the runs of equal codes.
 
+    codes: int32 (k <= 15) or int64 wide codes (16 <= k <= 23).
     Returns (skey, spos, head, v, real): codes in sorted order (invalid
-    positions as 4^k, last), their genome positions (int64), run-head
-    flags, run lengths (int32; a run's length is its k-mer's count) and
-    not-invalid flags.
+    positions as 4^k, last; 2^46 at k = 23), their genome positions
+    (int64), run-head flags, run lengths (int32; a run's length is its
+    k-mer's count) and not-invalid flags.
     """
     size = 1 << (2 * k)
-    key = torch.where(kmer_valid, codes, size).to(torch.int32)
+    key = torch.where(kmer_valid, codes, size).to(
+        torch.int32 if k <= 15 else torch.int64)
     skey, spos = torch.sort(key, stable=True)
     head = _first_in_run(skey)
     return skey, spos, head, _run_lengths(head), skey < size
@@ -179,10 +186,11 @@ def sorted_runs(codes: torch.Tensor, kmer_valid: torch.Tensor, k: int):
 def _extract_list(skey, v, head, real, t_list: int, stride: int, cap: int):
     """Fixed-capacity (code, v) records of every run with v >= t_list.
 
-    skey: codes in sorted order; v: run lengths; head/real: run-head flags
-    / not-sentinel.  Returns (list_codes, list_v, count), int32: records
-    in code order, entries beyond the captured runs -1/-1, and the TRUE
-    number of qualifying runs (overflow check).
+    skey: codes in sorted order (int32, or int64 wide codes); v: run
+    lengths; head/real: run-head flags / not-sentinel.  Returns
+    (list_codes of skey's dtype, list_v, count int32): records in code
+    order, entries beyond the captured runs -1/-1, and the TRUE number of
+    qualifying runs (overflow check).
 
     Two mechanisms with one contract:
       * stride >= 8 (packed strategy, k <= 14): decimate the sorted order
@@ -215,7 +223,7 @@ def _extract_list(skey, v, head, real, t_list: int, stride: int, cap: int):
     vdec = v[::stride]
     flag = _first_in_run(dec) & real[::stride] & (vdec >= t_list)
     fkey = (~flag).to(torch.int64)
-    order = torch.sort((fkey << 32) | dec.to(torch.int64), stable=True).indices
+    order = torch.sort((fkey << 47) | dec.to(torch.int64), stable=True).indices
     got = flag[order[:cap]]  # flagged entries lead the order
     lc = dec[order[:cap]]
     lv = vdec[order[:cap]]
@@ -277,9 +285,43 @@ def pm_sort_screen(codes, kmer_valid, k: int, list_cap: int | None = None,
       list_count: int32, the TRUE qualifying-run count (overflow check);
       t_list: python int, the list threshold.
     """
-    n = codes.shape[0]
-    strategy, t_list, stride, nbins, cap = pm_params(k, strategy, n=int(n))
-    cap = list_cap or cap
+    strategy, t_list, stride, nbins, cap = pm_params(
+        k, strategy, n=int(codes.shape[0]))
+    return _screen(codes, kmer_valid, k, strategy, t_list, stride, nbins,
+                   list_cap or cap)
+
+
+def pm_sort_screen_wide(codes, kmer_valid, k: int,
+                        list_cap: int | None = None) -> dict:
+    """Exact-mass screen for wide codes (16 <= k <= 23): smallv always,
+    since 4^k >> n makes the counts sparse.
+
+    codes: int64 [n] wide codes (ops/blocked.py blocked_codes_wide, junk
+    where invalid).  One stable int64 sort replaces the reference's
+    2-key sort of (hi, lo).  The dict is pm_sort_screen's with the list
+    codes in the reference's int32 layout, list_hi = code >> 16 and
+    list_lo = code & 0xFFFF, both -1 where a slot is empty.
+    """
+    if not 16 <= k <= WIDE_MAX_K:
+        raise ValueError(f"wide codes need 16 <= k <= {WIDE_MAX_K}, got {k}")
+    _, t_list, stride, nbins, cap = pm_params(
+        k, None, n=int(codes.shape[0]), wide=True)
+    scr = _screen(codes, kmer_valid, k, "smallv", t_list, stride, nbins,
+                  list_cap or cap)
+    lc = scr.pop("list_codes")
+    got = lc >= 0
+    return {
+        "pm": scr["pm"], "total": scr["total"], "vh": scr["vh"],
+        "list_hi": torch.where(got, lc >> 16, -1).to(torch.int32),
+        "list_lo": torch.where(got, lc & 0xFFFF, -1).to(torch.int32),
+        "list_v": scr["list_v"], "list_count": scr["list_count"],
+        "t_list": t_list,
+    }
+
+
+def _screen(codes, kmer_valid, k: int, strategy: str, t_list: int,
+            stride: int, nbins: int, cap: int) -> dict:
+    """The screen of both code widths: sort, runs, K3, pm and the list."""
     skey, spos, head, v, real = sorted_runs(codes, kmer_valid, k)
     total = kmer_valid.sum(dtype=torch.int32)
     vh = histogram.histogram(
@@ -289,6 +331,7 @@ def pm_sort_screen(codes, kmer_valid, k: int, list_cap: int | None = None,
     else:
         pm_s, spos_s = _pm_smallv(v, head, real, t_list), spos
     lc, lv, count = _extract_list(skey, v, head, real, t_list, stride, cap)
+    del skey, head, v, real
     pm = torch.empty_like(pm_s)
     pm[spos_s] = pm_s  # back to genome order (spos_s is a permutation)
     return {

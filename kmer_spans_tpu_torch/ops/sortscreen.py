@@ -1,7 +1,9 @@
-"""Sort-based integer screen for 10 <= k <= 15: no 4^k table on device.
+"""Sort-based integer screen for 4 <= k <= 23: no 4^k table on device.
 
 Counterpart of ``kmer_spans_tpu/ops/sortscreen.py`` sort_screen_scores
-(the k = 12 pipeline row of bench.py).  Positions sort by code; a
+(the k = 12 pipeline row of bench.py) and sort_screen_scores_wide (int64
+wide codes at 16 <= k <= 23, one sort key where the reference sorts an
+int32 pair with two).  Positions sort by code; a
 position's run length v is its k-mer's exact count.  Two run histograms
 (K3) give a sound upper bound on each position's rank mass (the
 derivation is the reference's module docstring):
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import gather, histogram
+from .blocked import WIDE_MAX_K
 from .gather import class_table_from_mass
 from .pmscreen import sorted_runs
 
@@ -105,14 +108,35 @@ def sort_screen_scores(codes, kmer_valid, scored, k: int, thr_q,
     """
     if not 4 <= k <= 15:
         raise ValueError(f"the sort screen needs 4 <= k <= 15, got k={k}")
+    return _sorted_scores(codes, kmer_valid, k, thr_q, vmax, v2)
+
+
+def sort_screen_scores_wide(codes, kmer_valid, k: int, thr_q,
+                            vmax: int = VMAX, v2: int = V2):
+    """The sort screen for wide codes (16 <= k <= 23): no 4^k anything,
+    device memory O(n) (a dense spectrum would take 68 GB at k = 17).
+
+    codes: int64 [n] wide codes (ops/blocked.py blocked_codes_wide, junk
+    where invalid).  The same screen as sort_screen_scores, with one
+    stable int64 sort where the reference sorts its (hi, lo) int32 pair
+    with two keys, and the high byte (code >> (2k - 8)) & 255.  Returns
+    (s_int int32 [n] in genome order, total int32).
+    """
+    if not 16 <= k <= WIDE_MAX_K:
+        raise ValueError(f"wide codes need 16 <= k <= {WIDE_MAX_K}, got {k}")
+    return _sorted_scores(codes, kmer_valid, k, thr_q, vmax, v2)
+
+
+def _sorted_scores(codes, kmer_valid, k: int, thr_q, vmax: int, v2: int):
     if vmax % 8 or vmax < 8:
         raise ValueError(f"vmax must be a positive multiple of 8, got {vmax}")
     v2 = min(v2, vmax)
     skey, spos, head, v, real = sorted_runs(codes, kmer_valid, k)
     total = kmer_valid.sum(dtype=torch.int32)
-    hb = (skey >> (2 * k - 8)) & 255
+    hb = ((skey >> (2 * k - 8)) & 255).to(torch.int32)
+    del skey
     s_sorted = _rank_ub_scores(v, hb, head, real, total, thr_q, vmax, v2)
-    del skey, head, v, real, hb
+    del head, v, real, hb
     s_int = torch.empty_like(s_sorted)
     s_int[spos] = s_sorted  # back to genome order (spos is a permutation)
     return s_int, total

@@ -1,7 +1,7 @@
 """The sequential reference the port is held against: the port's own copy.
 
-Copied from ``kmer_spans_tpu/oracle/reference.py`` (spectrum count,
-weighted ranks, span caller, transition-score caller, windowed
+Copied from ``kmer_spans_tpu/oracle/reference.py`` (spectrum count, dense
+and sparse, weighted ranks, span caller, transition-score caller, windowed
 distributions) and ``kmer_spans_tpu/utils/testgen.py`` (the golden
 genome), so that the port and chip_smoke.py import nothing of the JAX
 package.  Straightforward sequential numpy/python code with the
@@ -19,8 +19,9 @@ import numpy as np
 
 from .encoding import MAX_K, pack
 
-__all__ = ["count_spectrum", "find_regions", "find_tr_regions",
-           "golden_genome", "weighted_ranks", "windowed_distributions"]
+__all__ = ["count_spectrum", "count_spectrum_sparse", "find_regions",
+           "find_tr_regions", "golden_genome", "weighted_ranks",
+           "windowed_distributions"]
 
 
 def segments(valid: np.ndarray) -> list[tuple[int, int]]:
@@ -67,6 +68,33 @@ def count_spectrum(seq, k: int, counts: np.ndarray | None = None):
         allc = parts[0] if len(parts) == 1 else np.concatenate(parts)
         counts += np.bincount(allc, minlength=size).astype(counts.dtype)
     return counts, n_words
+
+
+def count_spectrum_sparse(seq, k: int):
+    """SPARSE spectrum: distinct codes + counts (the wide-k form).
+
+    For k >= 16 a dense 4^k array cannot exist (68 GB at k=17), but a
+    genome's spectrum has at most n distinct entries.  Codes are int64
+    (2k <= 62 bits); counting semantics are identical to count_spectrum
+    (reference sequence_kmer_count, src/kmer_spans.c:135-155 — which
+    is capped at its MAX_K; this extends the same contract past it).
+    Returns (ucodes int64 ascending, ucounts int64, n_words).
+    """
+    if not 1 <= k <= 31:
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    p = pack(seq)
+    parts = []
+    n_words = 0
+    for a, b in segments(p.valid):
+        if b - a + 1 < k:
+            continue
+        codes = _segment_codes(p.bases, a, b, k)
+        parts.append(codes)
+        n_words += codes.shape[0]
+    allc = (np.concatenate(parts) if parts
+            else np.zeros(0, np.int64))
+    ucodes, ucounts = np.unique(allc, return_counts=True)
+    return ucodes, ucounts.astype(np.int64), n_words
 
 
 def _segment_codes(bases: np.ndarray, a: int, b: int, k: int) -> np.ndarray:

@@ -1,8 +1,11 @@
 """Single-device helpers: the spectrum count with power-of-two staging,
-windowed distributions and transition-score regions of one sequence.
+the sparse wide-k spectrum, windowed distributions and transition-score
+regions of one sequence.
 
 Counterpart of ``kmer_spans_tpu/parallel/device.py`` (``bucket_size``,
-``device_count_spectrum``, ``device_window_dist``, ``device_tr_regions``).
+``device_count_spectrum``, ``device_window_dist``, ``device_tr_regions``);
+``device_sparse_spectrum`` computes on the device what the reference's
+host recount ``native.host_spectrum_sparse`` computes.
 Each sequence is staged on the device padded to a power-of-two bucket,
 with N (4) in the padding, so padding counts nowhere; its codes come from
 the blocked rolling codes (ops/blocked.py) and its 4^k spectrum from K3
@@ -19,7 +22,7 @@ import torch
 from ..device import resolve_device
 from ..encoding import MAX_K, PackedSeq
 from ..ops import histogram
-from ..ops.blocked import blocked_codes
+from ..ops.blocked import blocked_codes, blocked_codes_wide
 from ..spans.tr_pipeline import (
     finish_tr_spans,
     make_tr_pipeline,
@@ -76,6 +79,30 @@ def device_count_spectrum(packed: list[PackedSeq], k: int, device="cuda"):
         return np.zeros(1 << (2 * k), dtype=np.int64), 0
     counts = total.cpu().numpy()
     return counts, int(counts.sum())
+
+
+def device_sparse_spectrum(nbases, k: int, device="cuda"):
+    """The sparse spectrum of wide k-mers (16 <= k <= 23), on ``device``.
+
+    nbases: uint8 [n] (tensor or numpy; moved to ``device``), N as 4.
+    Returns (ucodes int64 np, the distinct codes ascending; ucounts int64
+    np, their counts; n_words, the counted k-mers), what the reference's
+    host recount native.host_spectrum_sparse returns, from one torch.sort
+    of the valid int64 codes and their runs (library calls, no kernel).
+    """
+    dev = resolve_device(device)
+    nbases = torch.as_tensor(nbases, device=dev)
+    if nbases.dtype != torch.uint8 or nbases.dim() != 1:
+        raise TypeError("nbases must be a 1-D uint8 array")
+    codes, kv = blocked_codes_wide((nbases & 3).reshape(1, -1),
+                                   (nbases < 4).reshape(1, -1), k)
+    key = codes.reshape(-1)[kv.reshape(-1)]
+    del codes, kv
+    skey = torch.sort(key).values
+    del key
+    ucodes, ucounts = torch.unique_consecutive(skey, return_counts=True)
+    return (ucodes.cpu().numpy(), ucounts.to(torch.int64).cpu().numpy(),
+            int(skey.numel()))
 
 
 def device_nbases(p: PackedSeq, npad: int, device) -> torch.Tensor:

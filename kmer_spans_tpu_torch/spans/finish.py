@@ -1,7 +1,9 @@
 """Host finishers of the span pipeline: numpy copies of the reference's.
 
 Verbatim copies of ``kmer_spans_tpu/spans/pipeline.py``'s host code
-(``host_rank_chain`` .. ``_replay_stretch``; its ``host_rank_mass`` is
+(``host_rank_chain`` .. ``_replay_stretch``, the wide-code
+``rebuild_codes_wide``, ``unpack_wide_outputs`` and ``finish_wide_spans``
+among them; its ``host_rank_mass`` is
 stats/ranks.py ``cumulative_mass``), which cannot be imported
 without JAX: that module pulls in the Pallas kernels.  Only the imports
 differ.  tests/test_torch_finish.py holds every copy equal to its
@@ -26,7 +28,7 @@ import torch
 
 from ..ops.blocked import SCREEN_NEG
 from ..ops.gather import SCREEN_SCALE
-from ..stats.ranks import chain_ranks_from_mass
+from ..stats.ranks import chain_ranks_from_mass, sparse_mass
 from ..utils import native
 from .extract import extract_spans
 
@@ -462,6 +464,150 @@ def finish_weight_spans(
                 scan_counts += np.bincount(
                     c_flat[sel], weights=rescans[sel], minlength=size
                 ).astype(np.int64)
+        i = j + 1
+    return SpanPipelineResult(regions=regions, fallback=False)
+
+
+def rebuild_codes_wide(cw: np.ndarray, k: int, block: int) -> np.ndarray:
+    """Exact int64 rolling codes from wide packed candidate words.
+
+    cw: [rows, 2 + block/16] uint32 — (hi0, lo0) seed pair + 2-bit
+    bases, 16/word.  The seed is the block's first full code; its bits
+    2t..2t+1 are the base t positions before the block start, exactly as
+    rebuild_codes — but the code needs 2k <= 46 bits, so everything is
+    int64 here.
+    """
+    rows = cw.shape[0]
+    seed = (cw[:, 0].astype(np.int64) << 16) | cw[:, 1].astype(np.int64)
+    bases = (
+        (cw[:, 2:, None] >> (2 * np.arange(16, dtype=np.uint32))) & 3
+    ).reshape(rows, block).astype(np.int64)
+    ext = np.empty((rows, k - 1 + block), np.int64)
+    ext[:, k - 1:] = bases
+    for t in range(1, k):
+        ext[:, k - 1 - t] = (seed >> (2 * t)) & 3
+    codes = np.zeros((rows, block), np.int64)
+    for t in range(k):
+        codes |= ext[:, k - 1 - t:k - 1 - t + block] << (2 * t)
+    return codes
+
+
+def unpack_wide_outputs(vec, n: int, block: int, cand_blocks: int):
+    """Decode make_wide_span_pipeline output into the finisher dict."""
+    v = np.asarray(vec)
+    nb = n // block
+    C = min(cand_blocks, nb)
+    off = 0
+
+    def take(m):
+        nonlocal off
+        out = v[off:off + m]
+        off += m
+        return out
+
+    total = int(take(1)[0])
+    tA = take(nb)
+    tB = take(nb)
+    maxA = take(nb)
+    maxB = take(nb)
+    top_idx = take(C)
+    sc_words = take(C * (block // 32)).copy().view(np.uint32)
+    scored = (
+        (sc_words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    ).astype(bool).reshape(C, block)
+    cand_words = take(C * (2 + block // 16)).copy().view(
+        np.uint32).reshape(C, 2 + block // 16)
+    assert off == v.shape[0], (off, v.shape)
+    return {
+        "total": total,
+        "tA": tA,
+        "tB": tB,
+        "maxA": maxA,
+        "maxB": maxB,
+        "top_idx": top_idx,
+        "cand_words": cand_words,
+        "scored": scored,
+    }
+
+
+def finish_wide_spans(
+    out: dict,
+    n: int,
+    k: int,
+    thr: float,
+    min_width: int,
+    min_score: float,
+    spectrum,
+    block: int = 8192,
+    seq_id: int = 0,
+) -> SpanPipelineResult:
+    """Host finisher for the wide pipeline: sparse-exact replay.
+
+    spectrum: (ucodes int64 ascending, ucounts, total) — e.g. from
+    oracle.count_spectrum_sparse (host recount; the device never holds a
+    spectrum at wide k).  Candidacy is the same exact int64 composition
+    as finish_spans; candidate ranks come from stats.ranks.sparse_mass +
+    chain_ranks_from_mass, bit-identical to the reference's f64 chain
+    (src/kmer_spans.c:198-202) restricted to present codes.
+    """
+    block_max, block_last = compose_summaries_exact(
+        out["tA"], out["tB"], out["maxA"], out["maxB"])
+    top_idx = np.asarray(out["top_idx"])
+    nb = block_max.shape[0]
+    linked = np.zeros(nb, bool)
+    linked[1:] = block_last[:-1] > 0
+    starts = np.nonzero(~linked)[0]
+    run_of = np.cumsum(~linked) - 1
+    run_max = np.maximum.reduceat(block_max, starts)[run_of]
+    cand = run_max >= float(min_score) * SCREEN_SCALE
+    if not cand.any():
+        return SpanPipelineResult(regions=[], fallback=False)
+    have = np.zeros(nb, bool)
+    have[top_idx] = True
+    if (cand & ~have).any():
+        return SpanPipelineResult(regions=[], fallback=True)
+
+    ucodes, ucounts, total = spectrum
+    ucodes = np.asarray(ucodes, np.int64)
+    pm_all, vhist, _ = sparse_mass(ucodes, ucounts)
+    pos_in_pull = {int(b): i for i, b in enumerate(top_idx)}
+    cand_words = np.asarray(out["cand_words"])
+    scored = np.asarray(out["scored"])
+
+    rows_all = sorted({pos_in_pull[b] for b in np.nonzero(cand)[0]})
+    codes = np.zeros((scored.shape[0], block), np.int64)
+    codes[rows_all] = rebuild_codes_wide(cand_words[rows_all], k, block)
+    uniq = np.unique(codes[rows_all][scored[rows_all]])
+    idx_u = np.minimum(np.searchsorted(ucodes, uniq),
+                       max(len(ucodes) - 1, 0))
+    ranks_u = chain_ranks_from_mass(pm_all[idx_u], vhist, total)
+
+    regions = []
+    i = 0
+    while i < nb:
+        if not cand[i]:
+            i += 1
+            continue
+        j = i
+        while j + 1 < nb and cand[j + 1]:
+            j += 1
+        rows = [pos_in_pull[b] for b in range(i, j + 1)]
+        c_flat = codes[rows].reshape(-1)
+        sc_flat = scored[rows].reshape(-1)
+        qi = np.minimum(np.searchsorted(uniq, c_flat),
+                        max(len(uniq) - 1, 0))
+        s_flat = np.where(sc_flat, ranks_u[qi] - thr, 0.0)
+        base_pos = i * block
+        rep = (native.replay_scores(
+            s_flat, sc_flat, min_width, min_score, base_pos)
+            if native.available() else None)
+        if rep is not None:
+            regions.extend(
+                (seq_id, int(bv), int(ev), float(sv))
+                for bv, ev, sv in zip(*rep))
+        else:
+            regions.extend(_replay_stretch(
+                s_flat, sc_flat, base_pos, min_width, min_score, seq_id))
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)
 

@@ -23,6 +23,10 @@ candidate blocks run-aware, and returns them with their codes and scored
 flags.  The host composes the summaries exactly and replays only
 candidate blocks in f64 (spans/finish.py finish_spans).
 
+``make_wide_span_pipeline`` is the sort screen at wide k (16 <= k <= 23,
+int64 codes); spans/finish.py finish_wide_spans replays its candidates
+from a sparse spectrum.
+
 The arbitrary-weight pipeline (``make_weight_span_pipeline``, with
 ``quantize_weight_table``) is the device step of the api's exact path:
 kmer_regions, the default kmer_low_comp_regions and kmer_spans.  It
@@ -47,8 +51,10 @@ import torch
 
 from ..device import resolve_device
 from ..ops.blocked import (
+    WIDE_MAX_K,
     block_rows_codes,
     blocked_codes,
+    blocked_codes_wide,
     blocked_scan_summaries_int,
     blocked_scored,
     compose_summaries_int64,
@@ -62,7 +68,7 @@ from ..ops.gather import (
     fine_scores_int,
     screen_thr_q,
 )
-from ..ops.sortscreen import sort_screen_scores
+from ..ops.sortscreen import sort_screen_scores, sort_screen_scores_wide
 from ..ops.screen_scan import MAX_BLOCK
 from ..parallel.pipeline import _rank_mass
 
@@ -114,10 +120,12 @@ def _top_blocks(tA, tB, maxA, maxB, C: int, x_in: int = 0) -> torch.Tensor:
 def pack_candidates(scored: torch.Tensor, codes: torch.Tensor):
     """Candidate blocks as the reference's packed words, int32 1-D each.
 
-    scored: bool [C, block]; codes: int32 [C, block] rolling codes.
-    Returns (scored flags, 32 a word; per block its first full code, the
-    k-1 halo seed, then its 2-bit bases, 16 a word), from which
-    spans/finish.py rebuild_codes restores exact codes.
+    scored: bool [C, block]; codes: [C, block] rolling codes, int32, or
+    int64 wide codes (16 <= k <= 23).  Returns (scored flags, 32 a word;
+    per block its first full code, the k-1 halo seed, then its 2-bit
+    bases, 16 a word), from which spans/finish.py rebuild_codes (or
+    rebuild_codes_wide) restores exact codes.  A wide seed travels as two
+    words, code >> 16 and code & 0xFFFF (the reference's (hi, lo) pair).
     """
     C, block = codes.shape
     bits32 = torch.arange(32, device=codes.device)
@@ -126,7 +134,10 @@ def pack_candidates(scored: torch.Tensor, codes: torch.Tensor):
     shifts = 2 * torch.arange(16, device=codes.device)
     b16 = ((codes & 3).to(torch.int64).reshape(C, block // 16, 16)
            << shifts).sum(dim=-1)
-    cand_words = torch.cat([codes[:, :1].to(torch.int64), b16], dim=1)
+    seed = codes[:, :1].to(torch.int64)
+    if codes.dtype == torch.int64:
+        seed = torch.cat([seed >> 16, seed & 0xFFFF], dim=1)
+    cand_words = torch.cat([seed, b16], dim=1)
     return wrap_int32(sc_words).reshape(-1), wrap_int32(cand_words).reshape(-1)
 
 
@@ -276,6 +287,59 @@ def make_span_pipeline(
     fn.packed_bases = packed
     fn.packed_counts = packed_counts
     fn.screen = screen
+    return fn
+
+
+def make_wide_span_pipeline(k: int, block: int = 8192,
+                            cand_blocks: int = 128, device="cuda"):
+    """The span pipeline for wide codes (16 <= k <= 23), past the C
+    reference's MAX_K, where no 4^k table can exist (68 GB at k = 17).
+
+    fn(nbases uint8 [n], thr float) -> ONE int32 vector: total, tA, tB,
+    maxA, maxB, top_idx, bit-packed scored flags, candidate blocks as two
+    seed words + 2-bit bases; decode it with spans/finish.py
+    unpack_wide_outputs, finish it with finish_wide_spans and a sparse
+    spectrum (parallel/device.py device_sparse_spectrum).  Codes are int64
+    (ops/blocked.py blocked_codes_wide), the screen is the wide sort
+    screen (ops/sortscreen.py: K3 twice, K4), device memory O(n).  n is a
+    positive multiple of ``block``, and block % 32 == 0.  The top C comes
+    from the exact int64 composition (_top_blocks), where the reference
+    orders it in f32.
+    """
+    if not 16 <= k <= WIDE_MAX_K:
+        raise ValueError(f"the wide pipeline needs 16 <= k <= {WIDE_MAX_K}, "
+                         f"got k={k}")
+    if block % 32:
+        raise ValueError(
+            f"block={block}: the packed vector needs block % 32 == 0")
+    dev = resolve_device(device)
+
+    def fn(nbases, thr):
+        nbases = torch.as_tensor(nbases, device=dev)
+        if nbases.dtype != torch.uint8 or nbases.dim() != 1:
+            raise TypeError("nbases must be a 1-D uint8 array")
+        thr = torch.as_tensor(thr, dtype=torch.float32, device=dev)
+        n = nbases.shape[0]
+        if n % block or n == 0:
+            raise ValueError(f"n={n} is not a positive multiple of {block}")
+        nb = n // block
+        v2 = (nbases < 4).reshape(nb, block)
+        codes, kmer_valid = blocked_codes_wide(
+            (nbases & 3).reshape(nb, block), v2, k)
+        scored = blocked_scored(v2, kmer_valid)
+        del v2
+        s_int, total = sort_screen_scores_wide(
+            codes.reshape(-1), kmer_valid.reshape(-1), k, screen_thr_q(thr))
+        del kmer_valid
+        tA, tB, maxA, maxB = blocked_scan_summaries_int(
+            s_int.reshape(nb, block), scored)
+        del s_int
+        top_idx = _top_blocks(tA, tB, maxA, maxB, min(cand_blocks, nb))
+        return torch.cat([
+            total.reshape(1), tA, tB, maxA, maxB, top_idx.to(torch.int32),
+            *pack_candidates(scored[top_idx], codes[top_idx]),
+        ])
+
     return fn
 
 

@@ -3,9 +3,11 @@
 Verbatim copies of ``kmer_spans_tpu/spans/pm_pipeline.py``'s host code
 (unpack_pm_outputs, _pm_host_tables, finish_pm_spans), which cannot be
 imported without JAX: that module imports spans/pipeline.py, which pulls
-in the Pallas kernels.  Only the imports differ, and the wide-code branch
-(16 <= k <= 23, not ported yet) raises.  tests/test_torch_pm_pipeline.py
-holds every copy equal to its original on the same inputs.
+in the Pallas kernels.  Only the imports differ.  Both code widths are
+decoded: narrow (10 <= k <= 15) and wide (16 <= k <= 23, two seed words a
+candidate block and the list as (hi, lo) pairs).
+tests/test_torch_pm_pipeline.py and tests/test_torch_wide.py hold every
+copy equal to its original on the same inputs.
 
 The host needs no spectrum: candidate ranks come from the pulled pm
 values and the device's value histogram through the reference's exact
@@ -25,19 +27,12 @@ from .finish import (
     _replay_stretch,
     compose_summaries_exact,
     rebuild_codes,
+    rebuild_codes_wide,
 )
-
-
-def _narrow(meta: dict) -> None:
-    if meta["wide"]:
-        raise NotImplementedError(
-            "wide codes (16 <= k <= 23) are not ported yet: ROADMAP queue 1 "
-            "item 7")
 
 
 def unpack_pm_outputs(vec, n: int, meta: dict) -> dict:
     """Decode the packed pm-pipeline vector into the finisher dict."""
-    _narrow(meta)
     v = np.asarray(vec)
     block = meta["block"]
     cap = meta["list_cap"]
@@ -61,8 +56,9 @@ def unpack_pm_outputs(vec, n: int, meta: dict) -> dict:
     scored = (
         (sc_words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
     ).astype(bool).reshape(C, block)
-    cand_words = take(C * (1 + block // 16)).copy().view(
-        np.uint32).reshape(C, 1 + block // 16)
+    seeds = 2 if meta["wide"] else 1
+    cand_words = take(C * (seeds + block // 16)).copy().view(
+        np.uint32).reshape(C, seeds + block // 16)
     pm = take(C * block).reshape(C, block)
     vh = take(meta["nbins"])
     out = {
@@ -70,7 +66,12 @@ def unpack_pm_outputs(vec, n: int, meta: dict) -> dict:
         "top_idx": top_idx, "scored": scored, "cand_words": cand_words,
         "pm": pm, "vh": vh,
     }
-    out["list_codes"] = take(cap).astype(np.int64)
+    if meta["wide"]:
+        lh = take(cap).astype(np.int64)
+        ll = take(cap).astype(np.int64)
+        out["list_codes"] = np.where(lh < 0, -1, (lh << 16) | ll)
+    else:
+        out["list_codes"] = take(cap).astype(np.int64)
     out["list_v"] = take(cap).astype(np.int64)
     out["list_count"] = int(take(1)[0])
     out["t_list"] = int(take(1)[0])
@@ -130,7 +131,6 @@ def finish_pm_spans(
     sequential chain (src/kmer_spans.c:198-202).  fallback=True when
     the top-C gather missed a candidate run OR the run list overflowed.
     """
-    _narrow(meta)
     block = meta["block"]
     k = meta["k"]
     if out["list_count"] > meta["list_cap"]:
@@ -162,8 +162,11 @@ def finish_pm_spans(
     # resolve pm for every scored candidate position (device value, or
     # list lookup for sentinel -1), then ranks for the distinct pm set
     rows_all = sorted({pos_in_pull[b] for b in np.nonzero(cand)[0]})
-    codes_all = rebuild_codes(cand_words[rows_all], k, block).astype(
-        np.int64)
+    if meta["wide"]:
+        codes_all = rebuild_codes_wide(cand_words[rows_all], k, block)
+    else:
+        codes_all = rebuild_codes(cand_words[rows_all], k, block).astype(
+            np.int64)
     pm_all = pm_rows[rows_all].astype(np.int64)
     sc_all = scored[rows_all]
     need = (pm_all < 0) & sc_all

@@ -1,9 +1,11 @@
 """Spectrum statistics on the host: median frequency, integer rank mass,
-reference-exact f64 chain ranks from that mass.
+reference-exact f64 chain ranks from that mass, and both over a sparse
+spectrum (wide k).
 
-The port's own copies of ``spectrum_median_freq``, ``cumulative_mass`` and
-``chain_ranks_from_mass`` from ``kmer_spans_tpu/stats/ranks.py``; the
-weighted ranks themselves are ``oracle.weighted_ranks``.
+The port's own copies of ``spectrum_median_freq``, ``cumulative_mass``,
+``chain_ranks_from_mass``, ``sparse_mass`` and ``SparseRanks`` from
+``kmer_spans_tpu/stats/ranks.py``; the weighted ranks themselves are
+``oracle.weighted_ranks``.
 """
 
 from __future__ import annotations
@@ -139,3 +141,70 @@ def chain_ranks_from_mass(
         carry = acc[-1]
         done += m
     return out
+
+
+def sparse_mass(ucodes: np.ndarray, ucounts: np.ndarray):
+    """Exact integer rank numerators for a SPARSE spectrum.
+
+    ucodes: distinct k-mer codes, ascending (int64 — wide codes welcome);
+    ucounts: their counts.  Absent codes have count 0 and sort (count
+    asc, code asc) before every present one with mass contribution 0, so
+    mass over present codes alone equals the dense cumulative_mass at
+    those codes — exactly (zero terms add nothing to the int sums).
+
+    Returns (pm int64 per entry, (v_vals, n_codes) sparse value
+    histogram, total int).  Feed pm slices + the histogram to
+    chain_ranks_from_mass for reference-exact f64 ranks without any 4^k
+    table — the k >= 16 (wide-code) replay path; reference anchor:
+    rank_kmers_w, src/kmer_spans.c:189-202.
+    """
+    ucounts = np.asarray(ucounts, dtype=np.int64)
+    order = np.argsort(ucounts, kind="stable")  # codes asc within ties
+    pm = np.empty(ucounts.shape[0], np.int64)
+    pm[order] = np.concatenate([[0], np.cumsum(ucounts[order])[:-1]])
+    v_vals, n_codes = np.unique(ucounts, return_counts=True)
+    return pm, (v_vals, n_codes), int(ucounts.sum())
+
+
+class SparseRanks:
+    """Reference-exact f64 rank lookup over a sparse spectrum.
+
+    ``ranks[code]`` returns the k-mer's weighted rank (the f64 chain
+    value of rank_kmers_w) via binary search over the distinct codes —
+    the oracle-side weights object for wide k, where a dense 4^k table
+    cannot exist.  Only PRESENT codes may be queried (a scored genome
+    position's k-mer was, by construction, counted).
+    """
+
+    sparse_lookup = True  # oracle.find_regions skips np.asarray on this
+
+    def __init__(self, ucodes, ucounts):
+        self.ucodes = np.asarray(ucodes, dtype=np.int64)
+        pm, vhist, total = sparse_mass(self.ucodes, ucounts)
+        self.total = total
+        self.ranks_u = chain_ranks_from_mass(pm, vhist, total)
+
+    def __getitem__(self, code):
+        i = int(np.searchsorted(self.ucodes, code))
+        if i >= self.ucodes.shape[0] or self.ucodes[i] != code:
+            raise KeyError(f"code {code} not in spectrum")
+        return self.ranks_u[i]
+
+    def lookup(self, codes: np.ndarray) -> np.ndarray:
+        """Vectorized rank gather for an array of PRESENT codes.
+
+        Absence is impossible by construction (every scored position's
+        k-mer was counted); if an upstream halo/reconstruction bug ever
+        queries a missing code, fail LOUDLY rather than silently return
+        a neighbor's rank (the never-silently-dropped invariant).
+        """
+        codes = np.asarray(codes, np.int64)
+        idx = np.searchsorted(self.ucodes, codes)
+        idx = np.minimum(idx, max(len(self.ucodes) - 1, 0))
+        if self.ucodes.size == 0 or not np.array_equal(
+                self.ucodes[idx], codes):
+            missing = codes[self.ucodes[idx] != codes] if \
+                self.ucodes.size else codes
+            raise KeyError(
+                f"codes not in spectrum (first: {missing.ravel()[:4]})")
+        return self.ranks_u[idx]

@@ -599,3 +599,82 @@ def test_stream_needs_a_card_for_cuda(card, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingSpanPipeline(8, chunk_bases=1 << 16, device="cuda")
+
+
+# ------------------------------------------------------- wide codes
+
+def _wide_genome(seed, n=1 << 21):
+    """Random bases (N as 4) with AG islands and N gaps, 2^21 bases."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    g[rng.random(n) < 0.001] = 4
+    for s in range(100_000, n - 4000, 500_000):
+        g[s:s + 3000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    return g
+
+
+@pytest.mark.parametrize("k", [16, 17, 23])
+def test_wide_pm_pipeline_kernel_matches_plain(card, k, monkeypatch):
+    """The wide pm pipeline: K3 once, equal to the plain value histogram
+    on the card and to the CPU; every island called."""
+    from kmer_spans_tpu_torch.spans import pm_finish
+    from kmer_spans_tpu_torch.spans.pm_pipeline import make_wide_pm_pipeline
+
+    g = _wide_genome(k)
+    fn, meta = make_wide_pm_pipeline(k, cand_blocks=16, device=card)
+    before = histogram.histogram_launches
+    got = fn(g, 0.75)
+    assert histogram.histogram_launches == before + 1
+    cpu = make_wide_pm_pipeline(k, cand_blocks=16, device="cpu")[0](g, 0.75)
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    assert torch.equal(got, fn(g, 0.75))
+    assert torch.equal(got.cpu(), cpu)
+    out = pm_finish.unpack_pm_outputs(got.cpu().numpy(), g.size, meta)
+    res = pm_finish.finish_pm_spans(out, g.size, meta, 0.75, 100, 20.0)
+    assert not res.fallback and len(res.regions) >= 4
+
+
+def test_wide_sort_pipeline_kernels_match_plain(card, monkeypatch):
+    """The wide sort screen: K3 twice and K4 once, equal to the plain
+    versions on the card and to the CPU; its regions equal the pm
+    route's."""
+    from kmer_spans_tpu_torch.parallel.device import device_sparse_spectrum
+    from kmer_spans_tpu_torch.spans import finish, pm_finish
+    from kmer_spans_tpu_torch.spans.pipeline import make_wide_span_pipeline
+    from kmer_spans_tpu_torch.spans.pm_pipeline import make_wide_pm_pipeline
+
+    k, g = 17, _wide_genome(5)
+    fn = make_wide_span_pipeline(k, cand_blocks=16, device=card)
+    before = histogram.histogram_launches, gather.launches
+    got = fn(g, 0.75)
+    assert (histogram.histogram_launches - before[0],
+            gather.launches - before[1]) == (2, 1)
+    cpu = make_wide_span_pipeline(k, cand_blocks=16, device="cpu")(g, 0.75)
+    spectrum = device_sparse_spectrum(g, k, device=card)
+    want_spectrum = device_sparse_spectrum(g, k, device="cpu")
+    for a, b in zip(spectrum, want_spectrum):
+        assert np.array_equal(a, b)
+    monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    monkeypatch.setattr(gather, "word_gather", word_gather_plain)
+    assert torch.equal(got, fn(g, 0.75))
+    assert torch.equal(got.cpu(), cpu)
+    out = finish.unpack_wide_outputs(got.cpu().numpy(), g.size, 8192, 16)
+    res = finish.finish_wide_spans(out, g.size, k, 0.75, 100, 20.0, spectrum)
+    pfn, meta = make_wide_pm_pipeline(k, cand_blocks=16, device=card)
+    pm_out = pm_finish.unpack_pm_outputs(pfn(g, 0.75).cpu().numpy(), g.size,
+                                         meta)
+    pm_res = pm_finish.finish_pm_spans(pm_out, g.size, meta, 0.75, 100, 20.0)
+    assert not res.fallback and res.regions == pm_res.regions
+    assert len(res.regions) >= 4
+
+
+def test_wide_api_on_card_equals_cpu(card, monkeypatch):
+    monkeypatch.setattr(api, "exact_fallbacks", 0)
+    seq = golden_genome()
+    got = api.kmer_wide_regions(seq, 17, 100, 20.0, device=card)
+    want = api.kmer_wide_regions(seq, 17, 100, 20.0, device="cpu")
+    assert len(got.regions) == 3 and api.exact_fallbacks == 0
+    assert np.array_equal(got.regions, want.regions)
+    assert np.array_equal(got.spectrum_codes, want.spectrum_codes)
+    assert np.array_equal(got.spectrum_counts, want.spectrum_counts)
+    assert got.n_words == want.n_words == 99_984

@@ -155,9 +155,17 @@ def test_stream_two_scaffolds(two_scaffolds, capsys):
     assert lines[3].startswith("s2\t40007\t40400")
 
 
-def test_wide_is_not_ported_yet(fasta):
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        cli.main(["wide", fasta, "-k", "16", "--device", "cpu"])
+def test_wide_is_not_ported_yet(fasta, capsys):
+    """The wide subcommand (the name dates from before its port): stdout
+    and stderr equal to the JAX CLI's."""
+    out, err, want, want_err = _both(
+        ["wide", fasta, "-k", "17", "--min-width", "100", "--min-score",
+         "20"], capsys)
+    assert out == want and err == want_err
+    lines = out.splitlines()
+    assert len(lines) == 4
+    assert lines[1].startswith("chr1\t20017\t20600\t136.02952")
+    assert err.startswith("# 3 regions, 99984 k-mers, ")
 
 
 def test_device_defaults_to_cuda(fasta):

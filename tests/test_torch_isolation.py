@@ -169,6 +169,37 @@ def test_chain_ranks_from_mass_bit_for_bit(seed, form):
     assert np.array_equal(got, ref_oracle.weighted_ranks(counts, total))
 
 
+@pytest.mark.parametrize("k", [6, 17, 23])
+def test_sparse_spectrum_and_ranks_equal_the_reference(genomes, k):
+    """count_spectrum_sparse, sparse_mass and SparseRanks (the wide-k
+    oracle side), and the oracle's caller over a SparseRanks lookup."""
+    seq = genomes["random"]
+    got = oracle.count_spectrum_sparse(seq, k)
+    want = ref_oracle.count_spectrum_sparse(seq, k)
+    assert got[2] == want[2]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    pm, (vv, vn), total = ranks.sparse_mass(*got[:2])
+    wpm, (wvv, wvn), wtotal = ref_ranks.sparse_mass(*want[:2])
+    assert total == wtotal and np.array_equal(pm, wpm)
+    assert np.array_equal(vv, wvv) and np.array_equal(vn, wvn)
+    sr, wsr = ranks.SparseRanks(*got[:2]), ref_ranks.SparseRanks(*want[:2])
+    assert ranks.SparseRanks.sparse_lookup and sr.total == wsr.total
+    assert np.array_equal(sr.lookup(got[0]).view(np.int64),
+                          wsr.lookup(want[0]).view(np.int64))
+    assert sr[int(got[0][5])] == wsr[int(want[0][5])]
+    absent = int(got[0][-1]) + 1
+    with pytest.raises(KeyError):
+        sr[absent]
+    with pytest.raises(KeyError):
+        sr.lookup(np.array([absent]))
+    regions = oracle.find_regions(seq, 0, 100, 20.0, sr, k, 0.75)
+    assert regions and regions == ref_oracle.find_regions(
+        seq, 0, 100, 20.0, wsr, k, 0.75)
+    with pytest.raises(ValueError):
+        oracle.count_spectrum_sparse(seq, 32)
+
+
 def test_chain_ranks_from_mass_native_fold_bit_for_bit(monkeypatch):
     """Above 2^22 terms the fold runs in the host library; it equals the
     chunked numpy fold (held to the reference above) bit for bit."""

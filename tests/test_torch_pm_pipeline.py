@@ -155,9 +155,19 @@ def test_bad_arguments_raise():
         fn(np.zeros(1500, np.uint8), 0.75)
     with pytest.raises(TypeError):
         fn(np.zeros(1024, np.int32), 0.75)
-    with pytest.raises(NotImplementedError):  # wide codes: not ported yet
-        pm_finish.unpack_pm_outputs(np.zeros(8, np.int32), 1024,
-                                    dict(meta, wide=True))
+    # the wide layout (two seed words a block, the list as (hi, lo)) is
+    # decoded as the reference decodes it
+    wide = dict(meta, wide=True, cand_blocks=1)
+    n_words = 1 + 4 + 1 + 32 + 2 + 64 + 1024 + wide["nbins"] \
+        + 3 * wide["list_cap"] + 2
+    vec = np.random.default_rng(1).integers(
+        -4, 1 << 20, n_words).astype(np.int32)
+    got = pm_finish.unpack_pm_outputs(vec, 1024, wide)
+    want = ref.unpack_pm_outputs(vec, 1024, wide)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert np.array_equal(np.asarray(got[key]), np.asarray(want[key])), key
+    assert got["cand_words"].shape == (1, 2 + 1024 // 16)
 
 
 def test_pm_pipeline_imports_no_jax():
