@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed S] [--bases N]
 
+(``--mesh-rank DIR`` is phase 14's own: one of its two ranks.)
+
 Run from the repository root.  Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -108,7 +110,22 @@ Run from the repository root.  Phases, each of which raises on failure:
      CLI's wide with --device cuda, equal to --device cpu.  Phase 6 times
      K3 at the wide shapes (the k = 17 pm run lengths, 256 bins with one
      hot bin; the wide sort screen's two run histograms) and K4 at the
-     wide sort entries.
+     wide sort entries;
+ 14. the multi-device paths (parallel/) in a process group of this
+     process alone under NCCL (a file store in a temporary directory):
+     make_pipeline_step at k = 8 on the genome (counts equal to
+     api.kmer_counts, scored equal to the single-device mask, S within
+     2e-4 of an f64 doubling scan of the same s), the k = 13 sharded scan
+     and the wide k = 17 sharded scan (regions equal to phases 7's and
+     13's, every island called), each device step with the kernels and
+     with the plain versions (outputs equal), launches counted, walls and
+     peak memory logged; dryrun_multichip; then the genome's first 2^24
+     bases through distributed_low_comp_regions (k = 13) and
+     wide_low_comp_regions (k = 17) here and in two gloo ranks sharing the
+     card (this script with --mesh-rank), both ranks' regions equal to
+     each other and to this process's.  Phase 6 times K3 at the shard
+     count's 4^13 bins and the wide sharded scan's two run histograms, and
+     K4 at its table, on the inputs those steps pass.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -856,9 +873,10 @@ def full_size_phase(dev, nbases: np.ndarray, card: str):
     return launches, nbases_dev
 
 
-def pm_phase(dev, nbases_dev, card: str) -> int:
+def pm_phase(dev, nbases_dev, card: str) -> tuple[int, dict]:
     """Phase 7: the k >= 10 pm path at full size, k = 12 (packed key),
-    13 and 15 (strategy from the length).  Returns K3's launches."""
+    13 and 15 (strategy from the length).  Returns K3's launches and the
+    regions by k (phase 14 holds the sharded scan to k = 13's)."""
     from kmer_spans_tpu_torch.ops import histogram
     from kmer_spans_tpu_torch.spans import pm_finish
     from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
@@ -867,7 +885,7 @@ def pm_phase(dev, nbases_dev, card: str) -> int:
     cand = cand_blocks(n)
     log(f"  host replay through the native library: "
         f"{pm_finish.native.available()}")
-    launches = 0
+    launches, regions = 0, {}
     for k, strategy in ((12, "packed"), (13, None), (15, None)):
         fn, meta = make_pm_span_pipeline(k, block=BLOCK, cand_blocks=cand,
                                          strategy=strategy, device=dev)
@@ -891,7 +909,8 @@ def pm_phase(dev, nbases_dev, card: str) -> int:
             f"total {out['total']:,}")
         compare_runs(f"k={k} n={n:,} block={BLOCK} cand={cand}", card, n,
                      runs)
-    return launches
+        regions[k] = runs[0][1].regions
+    return launches, regions
 
 
 def class_sort_phase(dev, nbases: np.ndarray, nbases_dev, card: str):
@@ -1735,7 +1754,7 @@ def stream_phase(dev, nbases: np.ndarray, exact: dict, seed: int,
     return total
 
 
-def wide_phase(dev, nbases: np.ndarray, card: str) -> dict:
+def wide_phase(dev, nbases: np.ndarray, card: str) -> tuple[dict, list]:
     """Phase 13: wide codes on the genome.  The wide pm pipeline at k = 17
     and 23 (make_wide_pm_pipeline -> unpack_pm_outputs -> finish_pm_spans)
     and the wide sort route at k = 17 (make_wide_span_pipeline,
@@ -1746,7 +1765,8 @@ def wide_phase(dev, nbases: np.ndarray, card: str) -> dict:
     over the genome (n_words the valid k-mers, regions equal to the
     pipeline's, spectrum equal to the sort route's), over its first 2^20
     bases and over the golden genome, both equal to the sequential oracle
-    with a SparseRanks lookup.  Returns the kernels' launches."""
+    with a SparseRanks lookup.  Returns the kernels' launches and the
+    k = 17 regions (phase 14 holds the wide sharded scan to them)."""
     import torch
 
     from kmer_spans_tpu_torch import api
@@ -1880,7 +1900,7 @@ def wide_phase(dev, nbases: np.ndarray, card: str) -> dict:
                                  f"{got[:3]} != oracle {want[:3]}")
         log(f"  kmer_wide_regions k={k} over {label}: {len(got)} regions, "
             f"first {got[0][1:]}, == oracle with SparseRanks")
-    return launches
+    return launches, pm_regions[17]
 
 
 def cli_phase(dev) -> None:
@@ -1917,10 +1937,385 @@ def cli_phase(dev) -> None:
                 f"{lines[1:]}, equal to --device cpu")
 
 
+MESH_SMALL = 1 << 24
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """While on, every K3 and K4 call through its module (histogram.
+    histogram, gather.word_gather) keeps its arguments; yields the list
+    of (name, args)."""
+    from kmer_spans_tpu_torch.ops import gather, histogram
+
+    seen, saved = [], (histogram.histogram, gather.word_gather)
+
+    def keep(name, fn):
+        def call(*a):
+            seen.append((name, a))
+            return fn(*a)
+        return call
+
+    histogram.histogram = keep("histogram", saved[0])
+    gather.word_gather = keep("word_gather", saved[1])
+    try:
+        yield seen
+    finally:
+        histogram.histogram, gather.word_gather = saved
+
+
+def mesh_steps(grp, nbases_dev, block: int, cand: int, thr=THR):
+    """The device steps of phase 14 on this rank's shard: (k = 13 sharded
+    count, wide rank step and scan; k = 17 wide scan), each a function of
+    no argument returning its outputs."""
+    from kmer_spans_tpu_torch.parallel.sharded import make_sharded_count_step
+    from kmer_spans_tpu_torch.parallel.sharded_scan import (
+        make_sharded_rank_step_wide,
+        make_sharded_scan_step,
+    )
+    from kmer_spans_tpu_torch.parallel.wide_scan import make_wide_sharded_scan
+
+    bases, valid = nbases_dev & 3, nbases_dev < 4
+    cstep = make_sharded_count_step(grp, 13, block=block)
+    # the AG islands' two 13-mers occur about 1500 times an island, 81,000
+    # times at 2^28 bases: past the default vmax (2^14), where the rank
+    # step clips and flags them and its caller retries with a larger vmax
+    rstep = make_sharded_rank_step_wide(grp, 13, vmax=1 << 17)
+    sstep = make_sharded_scan_step(grp, 13, block=block, cand_blocks=cand)
+    wstep = make_wide_sharded_scan(grp, 17, block=block, cand_blocks=cand)
+
+    def sharded():
+        counts, c_over = cstep(bases, valid)
+        mass, clip, vhist = rstep(counts)
+        del counts
+        out = sstep(bases, valid, mass, int(vhist.sum()), thr)
+        return out + (c_over, clip, vhist)
+
+    return sharded, lambda: wstep(bases, valid, thr)
+
+
+def time_mesh_shapes(dev, grp, nbases_dev) -> tuple[list, list]:
+    """Phase 6 at the multi-device paths' shapes, at world size 1 on the
+    genome: K3 on the k = 13 shard count's received codes (4^13 bins, the
+    global form; half the 2 * n slots of the default bucket cap empty),
+    on the wide k = 17 scan's merged runs by value (4096 bins) and by
+    value and high byte (65536 bins), one hot bin in both; K4 on the wide
+    scan's table (8704 words, padded to 16384).  The inputs are the ones
+    the steps pass, kept from one run.  Returns (K3 shapes, K4 shapes)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather
+
+    n = nbases_dev.shape[0]
+    sharded, wide = mesh_steps(grp, nbases_dev, BLOCK, cand_blocks(n))
+    with kernel_inputs() as seen:
+        sharded()
+        wide()
+    torch.cuda.synchronize()
+    (_, count), (_, by_v), (_, by_vh), (_, k4) = seen
+    del seen
+    k3 = [hist_entry("k = 13 shard count, world 1, received codes", *count),
+          hist_entry("wide k = 17 scan, merged runs by value", *by_v),
+          hist_entry("wide k = 17 scan, merged runs by value and high byte",
+                     *by_vh)]
+    words, entry, thr_q = k4
+    if max_abs_err(gather.word_gather(words, entry, thr_q),
+                   gather.word_gather_plain(words, entry, thr_q)):
+        raise AssertionError("word_gather differs from plain at the wide "
+                             "sharded scan's entries")
+    t = in_turns(f"word_gather (wide k = 17 sharded scan, {entry.numel():,} "
+                 f"entries, {words.numel()} words)",
+                 lambda: gather.word_gather(words, entry, thr_q),
+                 lambda: gather.word_gather_plain(words, entry, thr_q))
+    m = entry.numel()
+    k4 = shape_entry(f"wide k = 17 sharded scan, {words.numel()} words", t,
+                     bound(m * 8 + words.numel() * 4, m))
+    return k3, [k4]
+
+
+def maxplus_f64(s, scored):
+    """The recurrence's running score from 0 over s in f64: the (a, b)
+    pairs composed by doubling (ops/scan.py scan_pairs), an independent
+    form of what the mesh step computes in closed form."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops.scan import scan_pairs, score_elements
+
+    A, B = scan_pairs(*score_elements(s.to(torch.float64), scored))
+    return torch.maximum(A, B)
+
+
+def timed_step(label, fn, plain: bool, card: str):
+    """One device step with the kernels or the plain versions: (outputs,
+    K3 launches, K4 launches), its wall (to a synchronize) and peak
+    device memory logged."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import gather, histogram
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    with plain_versions(plain):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"  {label}, {'plain versions' if plain else 'kernels'}: device step "
+        f"{wall * 1e3:.1f} ms, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    return out, histogram.histogram_launches, gather.launches
+
+
+def equal_outputs(label, got, want) -> None:
+    import torch
+
+    if len(got) != len(want) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: outputs differ from the plain run")
+
+
+def host(out) -> tuple:
+    return tuple(o.cpu().numpy() for o in out)
+
+
+def mesh_phase(dev, grp, nbases: np.ndarray, pm13: list, wide17: list,
+               seed: int, card: str) -> dict:
+    """Phase 14: the multi-device paths at world size 1 under NCCL on the
+    genome, each device step with the kernels and again with the plain
+    versions (outputs equal): make_pipeline_step at k = 8 (counts equal to
+    api.kmer_counts, scored equal to the single-device mask, S within 2e-4
+    of an f64 recurrence over the same s), the k = 13 sharded scan (count,
+    wide rank step, scan; regions equal to phase 7's pm k = 13 regions,
+    every island called) and the wide k = 17 sharded scan (the host finish
+    once; regions equal to phase 13's); dryrun_multichip; then the
+    2^24-base head of the genome through distributed_low_comp_regions
+    (k = 13) and wide_low_comp_regions (k = 17) at world size 1 here and
+    in two gloo ranks on this card (launch_local; both ranks' regions
+    equal, and equal to world size 1).  Returns K3's and K4's launches in
+    the kernels' runs."""
+    import tempfile
+
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.ops import _build
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes, blocked_scored
+    from kmer_spans_tpu_torch.ops.convert import to_tensor
+    from kmer_spans_tpu_torch.parallel.multihost import (
+        distributed_low_comp_regions,
+        dryrun_multichip,
+        launch_local,
+    )
+    from kmer_spans_tpu_torch.parallel.pipeline import (
+        _rank_mass,
+        make_pipeline_step,
+    )
+    from kmer_spans_tpu_torch.parallel.sharded_scan import (
+        finish_sharded_spans,
+    )
+    from kmer_spans_tpu_torch.parallel.wide_scan import (
+        finish_wide_sharded,
+        wide_low_comp_regions,
+    )
+
+    n = nbases.shape[0]
+    cand = cand_blocks(n)
+    launches = {"histogram": 0, "word_gather": 0}
+    nbases_dev = to_tensor(nbases, dev)
+    bases, valid = nbases_dev & 3, nbases_dev < 4
+
+    # --- the k = 8 mesh step -------------------------------------------
+    step = make_pipeline_step(grp, 8, block=BLOCK)
+    label = f"mesh step k=8 world 1 n={n:,} block={BLOCK}"
+    got, n_k3, n_k4 = timed_step(label, lambda: step(bases, valid, THR), False,
+                                 card)
+    if (n_k3, n_k4) != (1, 0):
+        raise AssertionError(f"{label}: launches (K3, K4) {(n_k3, n_k4)}")
+    launches["histogram"] += n_k3
+    equal_outputs(label, got, timed_step(label, lambda: step(
+        bases, valid, THR), True, card)[0])
+    counts, S, scored = got
+    want = api.kmer_counts(PackedSeq(bases=nbases & 3, valid=nbases < 4), 8,
+                           device=dev).counts
+    if not np.array_equal(counts.cpu().numpy(), want):
+        raise AssertionError(f"{label}: counts differ from kmer_counts")
+    b2, v2 = bases.reshape(-1, BLOCK), valid.reshape(-1, BLOCK)
+    code, kv = blocked_codes(b2, v2, 8)
+    if not torch.equal(scored, blocked_scored(v2, kv).reshape(-1)):
+        raise AssertionError(f"{label}: scored differs from the "
+                             "single-device mask")
+    total = counts.sum().to(torch.float32)
+    s = (_rank_mass(counts)[torch.where(kv, code, 0).reshape(-1)].to(
+        torch.float32) - torch.tensor(THR, device=dev) * total) / total
+    del code, kv
+    t0 = time.perf_counter()
+    ref = maxplus_f64(s, scored)
+    torch.cuda.synchronize()
+    err = (S.to(torch.float64) - ref).abs()
+    bad = int((err > 2e-4 + 2e-4 * ref.abs()).sum())
+    log(f"  {label}: counts equal to kmer_counts, scored exact, S max |err| "
+        f"{float(err.max()):.3e} against the f64 doubling scan ({bad} beyond "
+        f"2e-4; the scan {time.perf_counter() - t0:.2f} s), max S "
+        f"{float(ref.max()):.1f}")
+    if bad:
+        raise AssertionError(f"{label}: S beyond 2e-4 of the f64 recurrence")
+    del got, counts, S, scored, s, ref, err, step
+
+    # --- the k = 13 sharded scan and the wide k = 17 scan ----------------
+    sharded, wide = mesh_steps(grp, nbases_dev, BLOCK, cand)
+    for label, fn, want_launch in (
+            (f"sharded k=13 world 1 n={n:,} cand={cand}", sharded, (1, 0)),
+            (f"wide sharded k=17 world 1 n={n:,} cand={cand}", wide, (2, 1))):
+        got, n_k3, n_k4 = timed_step(label, fn, False, card)
+        if (n_k3, n_k4) != want_launch:
+            raise AssertionError(f"{label}: launches (K3, K4) "
+                                 f"{(n_k3, n_k4)}, expected {want_launch}")
+        launches["histogram"] += n_k3
+        launches["word_gather"] += n_k4
+        equal_outputs(label, got, timed_step(label, fn, True, card)[0])
+        out = host(got)
+        del got
+        t0 = time.perf_counter()
+        if fn is sharded:
+            if bool(out[8]) or bool(out[9]):
+                raise AssertionError(f"{label}: bucket overflow {out[8]}, "
+                                     f"value clip {out[9]}")
+            res = finish_sharded_spans(out[:8], n, int(out[10].sum()), THR,
+                                       MIN_W, MIN_S, BLOCK,
+                                       value_hist=out[10])
+            want = pm13
+        else:
+            res = finish_wide_sharded(out, n, 17, THR, MIN_W, MIN_S,
+                                      (out[9], out[10], int(out[7])), BLOCK)
+            want = wide17
+        t_fin = time.perf_counter() - t0
+        hit = check_islands(res, n)
+        if res.overflow or res.regions != want:
+            raise AssertionError(f"{label}: regions differ from the single-"
+                                 f"device path's, or overflow {res.overflow}")
+        log(f"  {label}: {len(res.regions)} regions, all {hit} islands "
+            f"called, equal to the single-device path's bit for bit; host "
+            f"finish {t_fin:.3f} s")
+    del nbases_dev, bases, valid, b2, v2
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dryrun_multichip(grp)
+    log(f"  dryrun_multichip at world 1: equal to the oracle "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # --- the 2^24 head: world 1 here, two gloo ranks on this card --------
+    head = nbases[:MESH_SMALL]
+    c_small = cand_blocks(MESH_SMALL)
+    t0 = time.perf_counter()
+    one = mesh_regions(grp, head, c_small)
+    log(f"  2^24 head, world 1 (NCCL): k=13 {len(one[0])} regions, k=17 "
+        f"{len(one[1])} regions, {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        launch_local([sys.executable, __file__, "--mesh-rank", tmp,
+                      "--seed", str(seed)], 2, timeout=600)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(open(f"{tmp}/rank{r}.json").read())
+                 for r in range(2)]
+    if one[2] != [False] * 4 or not one[0] or not one[1]:
+        raise AssertionError(f"2^24 head, world 1: flags {one[2]}")
+    for r, got in enumerate(ranks):
+        log(f"  2^24 head, rank {r} of 2 (gloo, one card): "
+            f"{got['seconds']:.2f} s in the rank, peak device memory "
+            f"{got['peak_gib']:.2f} GiB")
+        regs = ([tuple(x) for x in got["k13"]], [tuple(x) for x in got["k17"]])
+        if got["flags"] != [False] * 4 or regs != one[:2]:
+            raise AssertionError(f"2^24 head, rank {r} of 2: regions differ "
+                                 f"from world 1, or flags {got['flags']}")
+    log(f"  2^24 head, two gloo ranks on one card: both ranks' regions "
+        f"equal, and equal to world 1 (wall {wall:.2f} s with the ranks' "
+        "start)")
+    return launches
+
+
+def mesh_regions(grp, head: np.ndarray, cand: int):
+    """The 2^24 head through distributed_low_comp_regions (k = 13) and
+    wide_low_comp_regions (k = 17) over ``grp`` (C a rank: cand / world):
+    (k = 13 regions, k = 17 regions, their fallback and overflow flags)."""
+    from kmer_spans_tpu_torch.parallel.multihost import (
+        distributed_low_comp_regions,
+    )
+    from kmer_spans_tpu_torch.parallel.wide_scan import wide_low_comp_regions
+
+    c = cand // grp.size
+    r13 = distributed_low_comp_regions(head, 13, MIN_W, MIN_S, thr=THR,
+                                       block=BLOCK, cand_blocks=c,
+                                       device=grp.device)
+    r17 = wide_low_comp_regions(grp, head, 17, MIN_W, MIN_S, thr=THR,
+                                block=BLOCK, cand_blocks=c)
+    def plain(regions):
+        return [(int(a), int(b), int(c), float(d)) for a, b, c, d in regions]
+
+    return (plain(r13.regions), plain(r17.regions),
+            [r13.fallback, r13.overflow, r17.fallback, r17.overflow])
+
+
+def mesh_rank_main(store_dir: str, seed: int) -> int:
+    """One of phase 14's two gloo ranks on the card: the 2^24 head through
+    mesh_regions, written to store_dir/rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from kmer_spans_tpu_torch.parallel.multihost import (
+        global_data_mesh,
+        initialize,
+    )
+
+    t0 = time.perf_counter()
+    initialize(f"file://{store_dir}/store", device="cuda", backend="gloo")
+    grp = global_data_mesh("cuda")
+    head = make_genome(MESH_SMALL, seed)
+    r13, r17, flags = mesh_regions(grp, head, cand_blocks(MESH_SMALL))
+    torch.cuda.synchronize()
+    with open(f"{store_dir}/rank{grp.rank}.json", "w") as f:
+        json.dump({"k13": r13, "k17": r17, "flags": flags,
+                   "seconds": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30},
+                  f)
+    dist.destroy_process_group()
+    return 0
+
+
+def world_one(dev):
+    """A process group of this process alone on the card: NCCL, a file
+    store in a temporary directory of the build directory.  Returns its
+    DataGroup and a function that destroys the group and the directory."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kmer_spans_tpu_torch.ops import _build
+    from kmer_spans_tpu_torch.parallel.multihost import (
+        global_data_mesh,
+        initialize,
+    )
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    initialize(f"file://{tmp}/store", world_size=1, rank=0, device=dev)
+
+    def close():
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+
+    return global_data_mesh(dev), close
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bases", type=int, default=1 << 28)
+    ap.add_argument("--mesh-rank", metavar="DIR",
+                    help="run as one of phase 14's two gloo ranks (launched "
+                    "by phase 14 itself), its store and output in DIR")
     args = ap.parse_args(argv)
     if args.bases % BLOCK:
         ap.error(f"--bases must be a multiple of {BLOCK}")
@@ -1930,6 +2325,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.mesh_rank:
+        return mesh_rank_main(args.mesh_rank, args.seed)
     dev = torch.device("cuda", 0)
     clock = {"t": time.perf_counter(), "name": None}
 
@@ -1945,6 +2342,8 @@ def main(argv=None) -> int:
     phase("phase 1: device")
     card = card_line()
     log(card)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
 
     phase("phase 2: build")
     from kmer_spans_tpu_torch.ops import _build
@@ -1978,6 +2377,9 @@ def main(argv=None) -> int:
     phase("phase 5: full-size k = 8 path")
     launches, nbases_dev = full_size_phase(dev, nbases, card)
 
+    # one process group of this process alone (NCCL, world size 1) for
+    # the multi-device paths' shapes in phase 6 and for phase 14
+    grp, close_group = world_one(dev)
     phase("phase 6: kernel, plain and library times at the main paths' "
         f"shapes [{card}]")
     times = time_kernels(dev, nbases_dev)
@@ -1994,12 +2396,16 @@ def main(argv=None) -> int:
     more, k4 = time_wide_shapes(dev, nbases_dev)
     times["word_gather"]["shapes"].append(k4)
     k3 += more
+    torch.cuda.empty_cache()
+    more, k4 = time_mesh_shapes(dev, grp, nbases_dev)
+    times["word_gather"]["shapes"] += k4
+    k3 += more
     times["histogram"] = main_entry(k3)
     err["histogram"] = max(err["histogram"], *(e["err"] for e in k3))
     torch.cuda.empty_cache()
 
     phase("phase 7: full-size k >= 10 pm path")
-    launches["histogram"] = pm_phase(dev, nbases_dev, card)
+    launches["histogram"], pm_regions = pm_phase(dev, nbases_dev, card)
 
     phase("phase 8: full-size k = 9 class path and k = 12 sort path")
     for name, count in class_sort_phase(dev, nbases, nbases_dev,
@@ -2028,11 +2434,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("phase 13: wide codes (16 <= k <= 23) and the CLI on the card")
-    for name, count in wide_phase(dev, nbases, card).items():
+    n_wide, wide17 = wide_phase(dev, nbases, card)
+    for name, count in n_wide.items():
         launches[name] += count
     cli_phase(dev)
+    torch.cuda.empty_cache()
+
+    phase("phase 14: the multi-device paths on the card")
+    for name, count in mesh_phase(dev, grp, nbases, pm_regions[13], wide17,
+                                  args.seed, card).items():
+        launches[name] += count
 
     phase(None)
+    close_group()
     if "jax" in sys.modules or any(
             m.split(".")[0] == "kmer_spans_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")

@@ -678,3 +678,124 @@ def test_wide_api_on_card_equals_cpu(card, monkeypatch):
     assert np.array_equal(got.spectrum_codes, want.spectrum_codes)
     assert np.array_equal(got.spectrum_counts, want.spectrum_counts)
     assert got.n_words == want.n_words == 99_984
+
+
+# ------------------------------------------------- the multi-device paths
+
+@pytest.fixture(scope="module")
+def world_one():
+    """This process alone as a process group: NCCL on the card, and a gloo
+    sub-group of it on the CPU.  Yields (card group, CPU group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    import tempfile
+
+    import torch.distributed as dist
+
+    from kmer_spans_tpu_torch.parallel.collectives import DataGroup
+    from kmer_spans_tpu_torch.parallel.multihost import initialize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(f"file://{tmp}/store", 1, 0, device="cuda")
+        try:
+            yield (DataGroup.of("cuda"),
+                   DataGroup.of("cpu", dist.new_group([0], backend="gloo")))
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_runs(grp_card, grp_cpu, fn, monkeypatch):
+    """fn(grp) with the kernels on the card (launches counted), with the
+    plain versions on the card and on the CPU: (outputs of each as CPU
+    tensors, (K3, K4) launches of the kernels' run)."""
+    before = histogram.histogram_launches, gather.launches
+    got = fn(grp_card)
+    torch.cuda.synchronize()
+    launched = (histogram.histogram_launches - before[0],
+                gather.launches - before[1])
+    with monkeypatch.context() as m:
+        m.setattr(histogram, "histogram", histogram_plain)
+        m.setattr(gather, "word_gather", word_gather_plain)
+        plain = fn(grp_card)
+    cpu = fn(grp_cpu)
+    return [[t.cpu() for t in out] for out in (got, plain, cpu)], launched
+
+
+def test_mesh_step_kernels_match_plain_and_cpu(world_one, monkeypatch):
+    """The k = 8 mesh step on 2^21 bases: K3 once; counts, scored and S
+    equal to the plain versions on the card; counts and scored equal to
+    gloo on the CPU, S within 1e-6 of it (f64 sums in another order)."""
+    from kmer_spans_tpu_torch.parallel.pipeline import make_pipeline_step
+
+    g = _wide_genome(8)
+
+    def run(grp):
+        x = to_tensor(g, grp.device)
+        return make_pipeline_step(grp, 8, block=8192)(x & 3, x < 4, 0.75)
+
+    (got, plain, cpu), launched = _mesh_runs(*world_one, run, monkeypatch)
+    assert launched == (1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert torch.equal(got[0], cpu[0]) and torch.equal(got[2], cpu[2])
+    np.testing.assert_allclose(got[1].numpy(), cpu[1].numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert float(got[1].max()) > 100.0  # the islands' excursions
+
+
+@pytest.mark.parametrize("k,launches", [(13, (1, 0)), (17, (2, 1))])
+def test_sharded_scans_kernels_match_plain_and_cpu(world_one, k, launches,
+                                                   monkeypatch):
+    """The k = 13 sharded scan (count K3; wide rank step; scan) and the
+    wide k = 17 scan (K3 twice, K4) on 2^21 bases: every output equal to
+    the plain versions on the card and to gloo on the CPU; the regions
+    equal the single-device pm route's."""
+    from kmer_spans_tpu_torch.parallel.sharded import make_sharded_count_step
+    from kmer_spans_tpu_torch.parallel.sharded_scan import (
+        finish_sharded_spans,
+        make_sharded_rank_step_wide,
+        make_sharded_scan_step,
+    )
+    from kmer_spans_tpu_torch.parallel.wide_scan import (
+        finish_wide_sharded,
+        make_wide_sharded_scan,
+    )
+    from kmer_spans_tpu_torch.spans import pm_finish
+    from kmer_spans_tpu_torch.spans.pm_pipeline import (
+        make_pm_span_pipeline,
+        make_wide_pm_pipeline,
+    )
+
+    g = _wide_genome(k)
+
+    def run(grp):
+        x = to_tensor(g, grp.device)
+        bases, valid = x & 3, x < 4
+        if k == 17:
+            return make_wide_sharded_scan(grp, k, block=8192, cand_blocks=16)(
+                bases, valid, 0.75)
+        counts, c_over = make_sharded_count_step(grp, k, block=8192)(bases,
+                                                                     valid)
+        mass, clip, vhist = make_sharded_rank_step_wide(grp, k)(counts)
+        return make_sharded_scan_step(grp, k, block=8192, cand_blocks=16)(
+            bases, valid, mass, int(vhist.sum()), 0.75) + (c_over, clip,
+                                                           vhist)
+
+    (got, plain, cpu), launched = _mesh_runs(*world_one, run, monkeypatch)
+    assert launched == launches
+    for want in (plain, cpu):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    out = tuple(t.numpy() for t in got)
+    n = g.size
+    if k == 17:
+        res = finish_wide_sharded(out, n, k, 0.75, 100, 20.0,
+                                  (out[9], out[10], int(out[7])), 8192)
+        fn, meta = make_wide_pm_pipeline(k, cand_blocks=16, device="cpu")
+    else:
+        res = finish_sharded_spans(out[:8], n, int(out[10].sum()), 0.75, 100,
+                                   20.0, 8192, value_hist=out[10])
+        fn, meta = make_pm_span_pipeline(k, cand_blocks=16, device="cpu")
+    pm = pm_finish.finish_pm_spans(
+        pm_finish.unpack_pm_outputs(fn(g, 0.75).numpy(), n, meta), n, meta,
+        0.75, 100, 20.0)
+    assert not res.fallback and not res.overflow and len(res.regions) >= 4
+    assert res.regions == pm.regions

@@ -64,7 +64,14 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax_package():
                 "kmer_spans_tpu_torch.parallel.stream",
                 "kmer_spans_tpu_torch.ops.rowgather",
                 "kmer_spans_tpu_torch.io.checkpoint",
-                "kmer_spans_tpu_torch.utils.metrics"} <= set(mods), mods
+                "kmer_spans_tpu_torch.utils.metrics",
+                "kmer_spans_tpu_torch.ops.scan",
+                "kmer_spans_tpu_torch.parallel.collectives",
+                "kmer_spans_tpu_torch.parallel.multihost",
+                "kmer_spans_tpu_torch.parallel.pipeline",
+                "kmer_spans_tpu_torch.parallel.sharded",
+                "kmer_spans_tpu_torch.parallel.sharded_scan",
+                "kmer_spans_tpu_torch.parallel.wide_scan"} <= set(mods), mods
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
@@ -73,6 +80,26 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax_package():
     """)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout) >= 20  # every module of the port was imported
+
+
+def test_the_multi_device_modules_load_no_jax_package():
+    """The modules of the multi-device paths, and the test helper their
+    rank workers run (tests/torch_ranks.py), import no JAX package."""
+    res = _run("""
+        import sys
+        sys.path.insert(0, "tests")
+        import torch_ranks
+        import kmer_spans_tpu_torch.ops.scan
+        import kmer_spans_tpu_torch.parallel.multihost
+        import kmer_spans_tpu_torch.parallel.wide_scan
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
+        assert not bad, bad
+        assert {"kmer_spans_tpu_torch.parallel." + m for m in (
+            "collectives", "pipeline", "sharded", "sharded_scan")} <= set(
+                sys.modules)
+    """)
+    assert res.returncode == 0, res.stderr
 
 
 def _imported_roots(path: Path) -> set:
