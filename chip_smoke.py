@@ -125,7 +125,20 @@ Run from the repository root.  Phases, each of which raises on failure:
      card (this script with --mesh-rank), both ranks' regions equal to
      each other and to this process's.  Phase 6 times K3 at the shard
      count's 4^13 bins and the wide sharded scan's two run histograms, and
-     K4 at its table, on the inputs those steps pass.
+     K4 at its table, on the inputs those steps pass;
+ 15. the api's CPU backends beside the card, with the host CPU's model
+     (/proc/cpuinfo or lscpu): backend="native" (the host C++ library) over the
+     whole genome, kmer_counts and kmer_low_comp_regions at k = 8 and 12
+     and kmer_regions at k = 8 with phase 9's CpG-style table, each equal
+     to phase 9's result on the card (counts, scan counts, regions with
+     f64 ==), each wall beside the card's; backend="host" (the
+     sequential oracle) at k = 8 on the golden genome and the genome's
+     first 2^22 bases, and kmer_wide_regions(backend="native") at k = 17
+     on that head, each equal to the card's run on the same input; and
+     the dense span scan (ops/scan.py span_scan) on the card over the
+     k = 8 exact step's 2^28 f32 scores, equal to span_scan_blocked and,
+     on the first 2^20 positions, to a sequential f64 loop within
+     rtol = atol = 2e-4.  It adds nothing to the kernels' launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -1046,29 +1059,41 @@ def valid_kmers(nbases: np.ndarray, k: int) -> int:
     return int(np.maximum(lens - k + 1, 0).sum())
 
 
-def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
+def cpg_table() -> np.ndarray:
+    """The CpG-style k = 8 weight table of phases 9 and 15: +1.5 for the
+    planted repeat's k-mers, -0.4 for every other."""
+    from kmer_spans_tpu_torch.encoding import all_kmers
+
+    island = {"AGAGAGAG", "GAGAGAGA"}
+    return np.array([1.5 if km in island else -0.4 for km in all_kmers(8)])
+
+
+def exact_phase(dev, nbases: np.ndarray, card: str):
     """Phase 9: the exact api path at full size, each call with the
     kernels and again with the plain versions on the card: kmer_counts
     and the default kmer_low_comp_regions(mode="exact") at k = 8 and 12,
     kmer_regions at k = 8 with a CpG-style table on the planted repeat
     (its k-mers +1.5, every other -0.4) at min_score 20 and 0 (the pull
-    path).  Returns K3's launches in the kernels' runs and the exact
+    path).  Returns K3's launches in the kernels' runs, the exact
     regions of kmer_low_comp_regions by k (phase 12 holds the stream to
-    them)."""
+    them) and the kernels' results and walls by call (phase 15 holds the
+    CPU backends to them)."""
     import types
 
     import torch
 
     from kmer_spans_tpu_torch import api
-    from kmer_spans_tpu_torch.encoding import PackedSeq, all_kmers
+    from kmer_spans_tpu_torch.encoding import PackedSeq
     from kmer_spans_tpu_torch.ops import histogram
 
     n = nbases.shape[0]
     seq = PackedSeq(bases=nbases & 3, valid=nbases < 4)
     launches = 0
+    results = {}
 
     def both(label, call):
-        """(kernels' result, plain result), each run timed."""
+        """(kernels' result, plain result), each run timed; the kernels'
+        result and wall kept in ``results`` under ``label``."""
         nonlocal launches
         out = []
         for plain in (False, True):
@@ -1084,6 +1109,7 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
                     raise AssertionError(f"{label}: the exact path skipped "
                                          "the histogram")
                 launches += histogram.histogram_launches
+                results[label] = (res, wall)
             rest = wall - st["count"] - st["staging"] - st["device"] - \
                 st["pull"] - st["finish"]
             log(f"  {label}, {'plain versions' if plain else 'kernels'}: "
@@ -1132,8 +1158,7 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
         log(f"  kmer_low_comp_regions k={k} exact: {len(got.regions)} "
             f"regions, all {islands(got)} planted islands called, equal to "
             "the plain run bit for bit")
-    island = {"AGAGAGAG", "GAGAGAGA"}
-    w = np.array([1.5 if km in island else -0.4 for km in all_kmers(8)])
+    w = cpg_table()
     for min_score in (MIN_S, 0.0):
         got, want = both(
             f"kmer_regions k=8 min_score={min_score}",
@@ -1145,7 +1170,7 @@ def exact_phase(dev, nbases: np.ndarray, card: str) -> int:
             f"{len(got.regions)} regions, all {islands(got)} planted "
             f"islands called, scan counts sum {int(got.counts.sum()):,}, "
             "equal to the plain run")
-    return launches, exact
+    return launches, exact, results
 
 
 @contextlib.contextmanager
@@ -2283,6 +2308,206 @@ def mesh_rank_main(store_dir: str, seed: int) -> int:
     return 0
 
 
+def cpu_model() -> str:
+    """The host CPU: its model name (/proc/cpuinfo, else lscpu), its
+    architecture and the logical cores this process may use."""
+    import os
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.lower().startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        for line in out.splitlines():
+            if line.lower().startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    return (f"{name or 'CPU model not reported'} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} logical cores")
+
+
+def sequential_scan_f64(s: np.ndarray, scored: np.ndarray) -> np.ndarray:
+    """The recurrence S_i = max(S_{i-1} + s_i, 0), reset to 0 at unscored
+    positions, one position at a time in f64."""
+    out = np.zeros(s.shape[0])
+    prev = 0.0
+    for i, (v, m) in enumerate(zip(s.tolist(), scored.tolist())):
+        prev = max(prev + v, 0.0) if m else 0.0
+        out[i] = prev
+    return out
+
+
+def cpu_backends_phase(dev, nbases: np.ndarray, ph9: dict,
+                       card: str) -> None:
+    """Phase 15: the api's CPU backends beside the card.  backend="native"
+    (the host C++ library) on the whole genome: kmer_counts at k = 8 and
+    12 and kmer_low_comp_regions at k = 8 and 12, and kmer_regions at
+    k = 8 with phase 9's CpG-style table (min_score 20), each equal to
+    phase 9's kernels' result (counts, regions with f64 ==, scan counts),
+    its wall beside that run's; backend="host" (the sequential oracle) at
+    k = 8 on the golden genome and on the genome's first 2^22 bases, and
+    kmer_wide_regions(backend="native") at k = 17 on that head, each
+    equal to the card's run on the same input; then the dense span scan
+    on the card over the 2^28 f32 scores of the k = 8 exact step
+    (w_rank - thr at device_codes_scored's codes), against
+    span_scan_blocked and a sequential f64 loop on its first 2^20
+    positions and on two 2^22-position windows deep in the genome, each
+    from an unscored position (rtol = atol = 2e-4, the mesh rule)."""
+    import torch
+
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.ops.scan import span_scan, span_scan_blocked
+    from kmer_spans_tpu_torch.parallel.device import device_codes_scored
+    from kmer_spans_tpu_torch.utils.testgen import golden_genome
+
+    cpu = cpu_model()
+    log(f"  host: {cpu}; card: {card}")
+    seq = PackedSeq(bases=nbases & 3, valid=nbases < 4)
+
+    def timed(call):
+        t0 = time.perf_counter()
+        res = call()
+        return res, time.perf_counter() - t0
+
+    def same(label, got, want, fields):
+        for f in fields:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{label}: {f} differs from the "
+                                     "card's")
+
+    def beside(label, got, wall, key, fields, what):
+        want, card_wall = ph9[key]
+        same(label, got, want, fields)
+        log(f"  {label}: wall {wall:.3f} s [{cpu}], the card's "
+            f"{card_wall:.3f} s [{card}]; {what}, equal to the card's")
+
+    for k in (8, 12):
+        got, wall = timed(lambda: api.kmer_counts(seq, k, backend="native"))
+        beside(f"kmer_counts k={k} native", got, wall, f"kmer_counts k={k}",
+               ("n", "counts", "f"), f"n = {int(got.n):,}")
+    for k in (8, 12):
+        got, wall = timed(lambda: api.kmer_low_comp_regions(
+            seq, k, MIN_W, MIN_S, thr=THR, backend="native"))
+        beside(f"kmer_low_comp_regions k={k} native", got, wall,
+               f"kmer_low_comp_regions k={k} exact",
+               ("n", "counts", "regions", "w_rank"),
+               f"{len(got.regions)} regions (f64 scores ==)")
+    got, wall = timed(lambda: api.kmer_regions(seq, 8, cpg_table(), MIN_W,
+                                               MIN_S, backend="native"))
+    beside("kmer_regions k=8 native", got, wall,
+           f"kmer_regions k=8 min_score={MIN_S}", ("n", "counts", "regions"),
+           f"{len(got.regions)} regions, scan counts sum "
+           f"{int(got.counts.sum()):,}")
+
+    head = nbases[:1 << 22]
+    head_seq = PackedSeq(bases=head & 3, valid=head < 4)
+    cases = [
+        ("golden genome", "host", golden_genome(),
+         lambda s, **kw: api.kmer_low_comp_regions(s, 8, MIN_W, MIN_S,
+                                                   thr=THR, **kw),
+         ("n", "counts", "regions", "w_rank")),
+        ("2^22 head", "host", head_seq,
+         lambda s, **kw: api.kmer_low_comp_regions(s, 8, MIN_W, MIN_S,
+                                                   thr=THR, **kw),
+         ("n", "counts", "regions", "w_rank")),
+        ("2^22 head", "native", head_seq,
+         lambda s, **kw: api.kmer_wide_regions(s, 17, MIN_W, MIN_S,
+                                               thr=THR, **kw),
+         ("regions", "spectrum_codes", "spectrum_counts", "n_words")),
+    ]
+    for where, backend, s, call, fields in cases:
+        name = "kmer_wide_regions k=17" if backend == "native" else \
+            "kmer_low_comp_regions k=8"
+        want, card_wall = timed(lambda: call(s, device=dev))
+        got, wall = timed(lambda: call(s, backend=backend))
+        same(f"{name} {backend} on the {where}", got, want, fields)
+        if len(got.regions) < 1:
+            raise AssertionError(f"{name} {backend} on the {where}: no "
+                                 "region")
+        log(f"  {name} {backend} on the {where}: wall {wall:.3f} s [{cpu}], "
+            f"the card's {card_wall:.3f} s [{card}]; {len(got.regions)} "
+            "regions, equal to the card's")
+
+    # the dense span scan over the k = 8 exact step's scores
+    t0 = time.perf_counter()
+    codes, scored = device_codes_scored(seq, 8, dev)
+    w_rank = torch.from_numpy(ph9["kmer_low_comp_regions k=8 exact"][0]
+                              .w_rank).to(dev)
+    codes_t = torch.from_numpy(codes).to(dev)
+    scored_t = torch.from_numpy(scored).to(dev)
+    s = (w_rank[codes_t] - THR).to(torch.float32)
+    del codes, codes_t
+    torch.cuda.synchronize()
+    prep = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S, (A, B) = span_scan(s, scored_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    Sb = span_scan_blocked(s, scored_t, 4096)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    n = s.shape[0]
+    if S.shape != (n,) or S.dtype != torch.float32 or \
+            not torch.isfinite(S).all() or (S < 0).any():
+        raise AssertionError("span_scan: S is not finite, non-negative f32 "
+                             f"of shape ({n},)")
+    if (S[~scored_t] != 0).any():
+        raise AssertionError("span_scan: S is not 0 at unscored positions")
+    if not torch.allclose(S, Sb, rtol=2e-4, atol=2e-4):
+        raise AssertionError("span_scan differs from span_scan_blocked")
+    # the sequential f64 loop on the head and on two windows deep in the
+    # genome, each starting at an unscored position (S = 0 there, so the
+    # loop needs no carry): the cross-row composition gets a witness that
+    # shares no code with span_scan_blocked
+    h = 1 << 20
+    w = min(1 << 22, n // 4)
+    unscored = np.flatnonzero(~scored[w:n - w]) + w
+    if not len(unscored):
+        raise AssertionError("span_scan: no unscored position to start a "
+                             "deep window at")
+    windows = [(0, h),
+               (int(unscored[np.searchsorted(unscored, n // 2)
+                             .clip(max=len(unscored) - 1)]), w),
+               (int(unscored[-1]), w)]
+    seq_err = {}
+    for start, size in windows:
+        want = sequential_scan_f64(
+            s[start:start + size].double().cpu().numpy(),
+            scored[start:start + size])
+        got = S[start:start + size].double().cpu().numpy()
+        if not np.allclose(got, want, rtol=2e-4, atol=2e-4):
+            raise AssertionError(
+                f"span_scan differs from the sequential f64 loop on "
+                f"[{start:,}, {start + size:,})")
+        seq_err[start] = (size, float(np.abs(got - want).max()),
+                          float(want.max()))
+    if float(S[-1]) != float(torch.maximum(A, B)):
+        raise AssertionError("span_scan: the total transform from 0 is not "
+                             "the last S")
+    log(f"  span_scan k=8 n={n:,} f32: {wall * 1e3:.1f} ms (peak device "
+        f"memory {peak:.2f} GiB), span_scan_blocked(block 4096) "
+        f"{wall_b * 1e3:.1f} ms, codes and scores {prep * 1e3:.1f} ms "
+        f"[{card}]; max S {float(S.max()):.3f}, max |S - blocked| "
+        f"{float((S - Sb).abs().max()):.3g}; max |S - sequential f64| "
+        + ", ".join(f"{e:.3g} on [{a:,}, {a + z:,}) (max S {m:.3f})"
+                    for a, (z, e, m) in seq_err.items()))
+
+
 def world_one(dev):
     """A process group of this process alone on the card: NCCL, a file
     store in a temporary directory of the build directory.  Returns its
@@ -2415,7 +2640,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("phase 9: full-size exact api path")
-    n_k3, exact = exact_phase(dev, nbases, card)
+    n_k3, exact, exact_results = exact_phase(dev, nbases, card)
     launches["histogram"] += n_k3
     torch.cuda.empty_cache()
 
@@ -2444,6 +2669,10 @@ def main(argv=None) -> int:
     for name, count in mesh_phase(dev, grp, nbases, pm_regions[13], wide17,
                                   args.seed, card).items():
         launches[name] += count
+
+    phase("phase 15: the CPU backends beside the card")
+    cpu_backends_phase(dev, nbases, exact_results, card)
+    del exact_results
 
     phase(None)
     close_group()

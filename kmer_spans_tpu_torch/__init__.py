@@ -11,4 +11,14 @@ The port imports nothing of ``kmer_spans_tpu``: the host code it needs
 behind utils.native) is its own copy.
 """
 
+from .encoding import (
+    MAX_K,
+    NUC,
+    PackedSeq,
+    all_kmers,
+    code_to_kmer,
+    kmer_to_code,
+    pack,
+)
+
 __version__ = "0.1.0"

@@ -1,8 +1,25 @@
-"""User API of the port: k-mer counts and span calling on one device.
+"""User API of the port: k-mer counts and span calling.
 
-Counterpart of ``kmer_spans_tpu/api.py`` in its device form, with
-``device`` ("cuda" by default, or "cpu" for the kernels' plain versions)
-in place of the reference's ``backend``:
+Counterpart of ``kmer_spans_tpu/api.py``.  Every function that takes a
+``backend`` in the reference takes one here, beside ``device``:
+
+  * ``backend="auto"`` (the default) runs the device path on ``device``
+    ("cuda" by default, or "cpu" for the kernels' plain versions); it
+    stands in for the reference's "jax" and never picks a CPU backend.
+    A CUDA device without a card raises;
+  * ``backend="host"`` runs the port's sequential oracle (oracle.py) one
+    sequence at a time, as the reference's "host" does;
+  * ``backend="native"`` runs the port's host C++ library
+    (utils/native.py: count_spectrum, find_spans) where the reference's
+    "native" does, and the oracle where the reference does too
+    (lr_regions, window_kmer_dist, and the wide caller over the sparse
+    spectrum of host_spectrum_sparse).  Without the library it raises
+    RuntimeError.
+  * Any other name raises ValueError ("jax" too).  Under "host" and
+    "native", ``device`` is not used and nothing touches the card; no
+    call moves from one backend to another.
+
+The device path of each function:
 
   * kmer_counts: the 4^k spectrum (parallel/device.py, K3);
   * kmer_regions, kmer_spans and kmer_low_comp_regions(mode="exact"), the
@@ -16,6 +33,8 @@ in place of the reference's ``backend``:
     sequences at once, for 2 <= k <= 9 (the class screen of
     spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
     and 10 <= k <= 15 (the exact-mass pm screen, spans/pm_pipeline.py);
+    under "host" and "native" mode="fast" runs the exact host path, as in
+    the reference;
   * lr_regions: the transition-score caller (spans/tr_pipeline.py), its
     integer screen on the device and the exact f64 replay of its
     candidate blocks on the host;
@@ -26,11 +45,10 @@ in place of the reference's ``backend``:
     parallel/window_stream.py; K3 for the count histogram);
   * kmer_seq, kmers_to_file and read_kmers.
 
-Results carry the reference's fields: region positions and f64 scores are
-exactly the sequential reference's (candidates are replayed on the host
-from the f64 weights, or the exact rank chain).  The reference's
-backend="host" and "native" (the CPU oracle and its C++ form) are not
-ported; nothing here runs on the CPU unless device="cpu" is asked for.
+Results carry the reference's fields, equal under every backend: region
+positions and f64 scores are exactly the sequential reference's (the
+device path replays its candidates on the host from the f64 weights, or
+the exact rank chain).
 
 Where the fast device step cannot cover every candidate, the call reruns
 it on the same device and counts each rerun in ``exact_fallbacks``: with
@@ -51,6 +69,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import oracle
 from .device import resolve_device
 from .encoding import MAX_K, PackedSeq, all_kmers, kmer_to_code, pack
 from .io.fasta import read_fasta
@@ -81,7 +100,7 @@ from .spans.pipeline import (
 )
 from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
 from .spans.pm_pipeline import make_pm_span_pipeline, make_wide_pm_pipeline
-from .stats.ranks import cumulative_mass, spectrum_median_freq
+from .stats.ranks import SparseRanks, cumulative_mass, spectrum_median_freq
 from .utils import native
 
 #: device reruns after a candidate- or list-capacity overflow, and
@@ -112,6 +131,30 @@ def _as_seq_list(seqs) -> list[PackedSeq]:
     return [pack(s) for s in seqs]
 
 
+def _resolve(backend: str, device):
+    """(backend, torch.device or None): "auto" (the device path on
+    ``device``, which must exist), "host", or "native" (its library must
+    load; RuntimeError otherwise), with no device; any other name raises
+    ValueError."""
+    if backend == "auto":
+        return backend, resolve_device(device)
+    if backend == "native" and not native.available():
+        raise RuntimeError("native backend unavailable (the host library "
+                           "did not build or load)")
+    if backend == "jax":
+        raise ValueError("the port has no 'jax' backend: backend='auto' "
+                         "runs the device path on `device`")
+    if backend not in ("host", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend, None
+
+
+def _nbases_of(p: PackedSeq) -> np.ndarray:
+    nb = p.bases.copy()
+    nb[~p.valid] = 4
+    return nb
+
+
 # ---------------------------------------------------------------------------
 # Spectrum counting
 # ---------------------------------------------------------------------------
@@ -127,15 +170,40 @@ class KmerCountResult:
 
 
 def kmer_counts(seqs, k: int, with_f: bool = True,
-                device="cuda") -> KmerCountResult:
+                device="cuda", backend: str = "auto") -> KmerCountResult:
     """Dense 4^k spectrum over the combined set of sequences, counted on
-    ``device`` (reference kmer_counts; kmer_spans.R:18-27).
+    ``device`` or by the host ``backend`` (reference kmer_counts;
+    kmer_spans.R:18-27).
 
     Sequences shorter than k are skipped (src/kmer_spans.c:478-479).
     """
-    counts, n = device_count_spectrum(_as_seq_list(seqs), k, device)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k should be in [1, {MAX_K}]")
+    backend, dev = _resolve(backend, device)
+    packed = _as_seq_list(seqs)
+    if backend == "auto":
+        counts, n = device_count_spectrum(packed, k, dev)
+    else:
+        counts, n = _host_counts(packed, k, backend)
     f = counts / counts.sum() if with_f and counts.sum() else None
     return KmerCountResult(k=k, n=float(n), counts=counts, f=f)
+
+
+def _host_counts(packed: list[PackedSeq], k: int, backend: str):
+    """The 4^k spectrum by the oracle ("host") or the host library
+    ("native"), sequence by sequence: (counts int64, n)."""
+    counts = np.zeros(1 << (2 * k), dtype=np.int64)
+    n = 0
+    for p in packed:
+        if p.n < k:
+            continue
+        if backend == "native":
+            c, nw = native.count_spectrum(_nbases_of(p), k)
+            counts += c
+        else:
+            _, nw = oracle.count_spectrum(p, k, counts)
+        n += nw
+    return counts, n
 
 
 # ---------------------------------------------------------------------------
@@ -185,16 +253,21 @@ def _call_regions(
     model: ScoringModel,
     min_width: int,
     min_score: float,
-    device: torch.device,
+    device: torch.device | None,
     want_scan_counts: bool,
+    backend: str = "auto",
 ):
     """The span-calling core of kmer_regions, kmer_low_comp_regions(mode=
-    "exact") and kmer_spans: one device step per sequence, block 4096,
-    C = min(128, blocks) (reference api.py:204-243), its candidates
-    replayed on the host.
+    "exact") and kmer_spans: under "auto", one device step per sequence,
+    block 4096, C = min(128, blocks) (reference api.py:204-243), its
+    candidates replayed on the host; under "host" or "native", the
+    sequential caller per sequence.
 
     Returns (regions, scan counts int64 [4^k] or None).
     """
+    if backend != "auto":
+        return _host_regions(packed, k, model, min_width, min_score,
+                             backend, want_scan_counts)
     block = 4096
     size = 1 << (2 * k)
     scan_counts = np.zeros(size, dtype=np.int64) if want_scan_counts else None
@@ -224,9 +297,35 @@ def _call_regions(
     return all_regions, scan_counts
 
 
+def _host_regions(packed, k, model, min_width, min_score, backend,
+                  want_scan_counts):
+    """The sequential caller per sequence (reference api.py:244-273): the
+    host library's find_spans ("native") or the oracle ("host")."""
+    size = 1 << (2 * k)
+    scan_counts = np.zeros(size, dtype=np.int64) if want_scan_counts else None
+    all_regions = []
+    for i, p in enumerate(packed):
+        if p.n < k:
+            continue
+        if backend == "native":
+            beg, end, score, sc = native.find_spans(
+                _nbases_of(p), k, model.weights, model.threshold,
+                min_width, min_score, want_scan_counts=want_scan_counts)
+            all_regions.extend((i, int(b), int(e), float(v))
+                               for b, e, v in zip(beg, end, score))
+        else:
+            sc = np.zeros(size, dtype=np.int64) if want_scan_counts else None
+            all_regions.extend(oracle.find_regions(
+                p, i, min_width, min_score, model.weights, k,
+                model.threshold, scan_counts=sc))
+        if want_scan_counts:
+            scan_counts += sc
+    return all_regions, scan_counts
+
+
 def kmer_regions(
     seqs, k: int, kmer_scores, min_width: int, min_score: float,
-    device="cuda",
+    device="cuda", backend: str = "auto",
 ) -> RegionResult:
     """Arbitrary-weight span calling (reference kmer_regions_r, :490-546).
 
@@ -234,14 +333,15 @@ def kmer_regions(
     (k-mers at *scanned* positions, rescans counted again, as the
     reference does), and the regions.
     """
+    backend, dev = _resolve(backend, device)
     if k > MAX_K:
         raise ValueError("kmer sizes >= 16 not supported")
-    dev = resolve_device(device)
     packed = _as_seq_list(seqs)
     model = WeightScoring(_score_table(k, kmer_scores))
     total_len = float(sum(p.n for p in packed if p.n >= k))
     regions, scan_counts = _call_regions(
-        packed, k, model, min_width, min_score, dev, want_scan_counts=True)
+        packed, k, model, min_width, min_score, dev, want_scan_counts=True,
+        backend=backend)
     return RegionResult(
         n=np.array([total_len]),
         counts=scan_counts,
@@ -251,7 +351,7 @@ def kmer_regions(
 
 def kmer_low_comp_regions(
     seqs, k: int, min_w: int, min_score: float, thr: float = 0.75,
-    mode: str = "exact", device="cuda",
+    mode: str = "exact", device="cuda", backend: str = "auto",
 ) -> RegionResult:
     """Spectrum -> weighted ranks -> rank-scored spans (reference
     kmer_low_comp_regions, src/kmer_spans.c:548-621), on ``device``.
@@ -263,24 +363,26 @@ def kmer_low_comp_regions(
     pipeline over all sequences at once (concatenated with N separators),
     exact f64 replay of candidates, for 2 <= k <= 15; k = 1 raises
     ValueError there, since the class table packs 8 ranks a word and 4^1
-    fill none (the reference's fast path fails there too).
+    fill none (the reference's fast path fails there too).  Under
+    backend="host" or "native" both modes run the exact host path, as in
+    the reference.
     """
     if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k should be in [1, {MAX_K}]")
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     packed = _as_seq_list(seqs)
-    if mode == "fast":
+    if mode == "fast" and backend == "auto":
         if k < 2:
             raise ValueError(
                 "mode='fast' needs k >= 2: the class table packs 8 ranks a "
                 "word")
         return _low_comp_fast(packed, k, min_w, min_score, thr, dev)
-    cr = kmer_counts(packed, k, with_f=False, device=dev)
+    cr = kmer_counts(packed, k, with_f=False, device=dev, backend=backend)
     model = RankScoring(cr.counts, cr.n, thr)
     regions, _ = _call_regions(packed, k, model, min_w, min_score, dev,
-                               want_scan_counts=False)
+                               want_scan_counts=False, backend=backend)
     return RegionResult(
         n=np.array([cr.n, 0.0]),  # slot 1 is always 0 in the reference
         counts=cr.counts,
@@ -299,8 +401,10 @@ def kmer_spans(
     f_t: float | None = None,
     kmer_scores=None,
     device="cuda",
+    backend: str = "auto",
 ) -> RegionResult:
-    """Span calling with any of the reference's scoring functions.
+    """Span calling with any of the reference's scoring functions, on
+    ``device`` or by the host ``backend``.
 
     scoring:
       * "rank"        — s = rank_i - thr (the kmer.low.comp.regions model)
@@ -310,14 +414,14 @@ def kmer_spans(
                         zero-count k-mer scores -inf
       * "weights"     — arbitrary caller table (kmer.regions)
     """
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     packed = _as_seq_list(seqs)
     if scoring == "weights":
         if kmer_scores is None:
             raise ValueError("scoring='weights' requires kmer_scores")
         return kmer_regions(packed, k, kmer_scores, min_width, min_score,
-                            device=dev)
-    cr = kmer_counts(packed, k, with_f=False, device=dev)
+                            device=dev, backend=backend)
+    cr = kmer_counts(packed, k, with_f=False, device=dev, backend=backend)
     if scoring == "rank":
         model = RankScoring(cr.counts, cr.n, thr)
     elif scoring == "threshold":
@@ -329,7 +433,7 @@ def kmer_spans(
     else:
         raise ValueError(f"unknown scoring {scoring!r}")
     regions, _ = _call_regions(packed, k, model, min_width, min_score, dev,
-                               want_scan_counts=False)
+                               want_scan_counts=False, backend=backend)
     return RegionResult(
         n=np.array([cr.n]),
         counts=cr.counts,
@@ -348,9 +452,9 @@ def kmer_seq(k: int) -> list[str]:
 # ---------------------------------------------------------------------------
 
 def kmers_to_file(seq_f, out_prefix: str, k, min_l: int = 100_000,
-                  device="cuda"):
+                  device="cuda", backend: str = "auto"):
     """FASTA -> binary spectrum file for each k in ``k`` (scalar or list),
-    counted on ``device``.
+    counted on ``device`` or by the host ``backend``.
 
     Sequences shorter than min_l are dropped before counting (reference
     default 1e5).  Returns (seq_f, out_f, seq_size, seq_fsize, seq_fl) like
@@ -358,7 +462,7 @@ def kmers_to_file(seq_f, out_prefix: str, k, min_l: int = 100_000,
     """
     ks = [int(k)] if np.isscalar(k) else [int(x) for x in k]
     out_f = f"{out_prefix}counts_{'_'.join(str(x) for x in ks)}.bin"
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     try:
         records = read_fasta(seq_f)
         seq_size = sum(len(s) for _, s in records)
@@ -368,8 +472,8 @@ def kmers_to_file(seq_f, out_prefix: str, k, min_l: int = 100_000,
         if not kept:
             raise ValueError("no sequence after length filtering")
         packed = [pack(s) for s in kept]
-        counts = [kmer_counts(packed, kk, with_f=False, device=dev).counts
-                  for kk in ks]
+        counts = [kmer_counts(packed, kk, with_f=False, device=dev,
+                              backend=backend).counts for kk in ks]
     except (OSError, ValueError):
         return (seq_f, None, 0, 0, 0)
     write_kmers(out_f, counts)
@@ -392,11 +496,12 @@ class LrRegionResult:
 
 
 def lr_regions(
-    seqs, params, kmers, kmer_scores, trans_scores, device="cuda"
+    seqs, params, kmers, kmer_scores, trans_scores, device="cuda",
+    backend: str = "auto",
 ) -> LrRegionResult:
     """Transition-score span calling (reference tr_lr_regions_r, :649-713),
     one sequence at a time on ``device`` (parallel/device.py
-    device_tr_regions).
+    device_tr_regions), or by the oracle under "host" and "native".
 
     params = (k, min_length).  ``kmers`` gives the order of the score
     tables (any order, e.g. alphabetical); they are reordered to 2-bit
@@ -424,10 +529,14 @@ def lr_regions(
         code = kmer_to_code(kmer)
         ks[code] = kmer_scores[i]
         ts[code] = trans_scores[i]
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     regions = []
     for i, p in enumerate(_as_seq_list(seqs)):
         # reference seq_id starts at 1 here (:699)
+        if backend != "auto":
+            regions.extend(
+                oracle.find_tr_regions(p, i + 1, k, ks, ts, min_length))
+            continue
         res = device_tr_regions(p, k, ks, ts, min_length, seq_id=i + 1,
                                 device=dev)
         exact_fallbacks += max(res.pull_batches - 1, 0)
@@ -452,11 +561,12 @@ class WindowDistResult:
 
 def window_kmer_dist(
     seqs, kmers, window: int, freq: bool = True, ret_flag: int = 0,
-    device="cuda",
+    device="cuda", backend: str = "auto",
 ) -> WindowDistResult:
     """Sliding-window occurrence distributions (reference :717-793), one
     sequence at a time on ``device`` (parallel/device.py
-    device_window_dist, K3 for the count histogram).
+    device_window_dist, K3 for the count histogram), or by the oracle
+    under "host" and "native".
 
     Sequences with length <= window are skipped and flagged 0 in seq_i.
     """
@@ -469,7 +579,7 @@ def window_kmer_dist(
         raise ValueError("kmer sizes >= 16 not supported")
     if window < 2 * k:
         raise ValueError("the window size must be at least two times k")
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     tracked = np.array([kmer_to_code(x) for x in kmers], dtype=np.int64)
     packed = _as_seq_list(seqs)
     dist = np.zeros((window + 1, len(kmers)), dtype=np.int64)
@@ -481,9 +591,15 @@ def window_kmer_dist(
                 scores.append(None)
             continue
         seq_i[i] = 1
-        d, cpos = device_window_dist(p, tracked, k, window,
-                                     scores is not None, device=dev)
-        dist += d
+        if backend != "auto":
+            cpos = None
+            if scores is not None:
+                cpos = np.zeros((p.n, len(kmers)), dtype=np.int64)
+            oracle.windowed_distributions(p, tracked, k, window, dist, cpos)
+        else:
+            d, cpos = device_window_dist(p, tracked, k, window,
+                                         scores is not None, device=dev)
+            dist += d
         if scores is not None:
             scores.append(cpos)
     out = dist.astype(np.float64)
@@ -666,7 +782,7 @@ class WideRegionResult:
 def kmer_wide_regions(
     seqs, k: int, min_w: int, min_score: float, thr: float = 0.75,
     device="cuda", block: int = 8192, cand_blocks: int = 256,
-    with_spectrum: bool = True,
+    with_spectrum: bool = True, backend: str = "auto",
 ) -> WideRegionResult:
     """Rank-scored spans for wide k (16..23), past the reference's MAX_K
     (reference api.kmer_wide_regions; the semantics of
@@ -683,17 +799,34 @@ def kmer_wide_regions(
     device_sparse_spectrum) and checked against the device total;
     otherwise the spectrum fields are empty and n_words is the device
     total.
+
+    Under backend="host" or "native" the sequential oracle calls the
+    concatenated sequences over a SparseRanks lookup of the sparse
+    spectrum (counted by the oracle, or by the host library's
+    host_spectrum_sparse), as the reference's CPU path does; the spectrum
+    is then always returned.
     """
     if not 16 <= k <= WIDE_MAX_K:
         raise ValueError(f"kmer_wide_regions needs 16 <= k <= {WIDE_MAX_K}")
     if not 0.0 < thr < 1.0:
         raise ValueError("the threshold must be between 0 and 1")
-    dev = resolve_device(device)
+    backend, dev = _resolve(backend, device)
     kept = [(i, p) for i, p in enumerate(_as_seq_list(seqs)) if p.n >= k]
     empty = np.zeros(0, np.int64)
     if not kept:
         return WideRegionResult(_as_region_array([]), empty, empty, 0)
     arr, offsets = _concatenated(kept, block)
+    if backend != "auto":
+        cat = PackedSeq(bases=arr & 3, valid=arr < 4)
+        if backend == "native":
+            ucodes, ucounts, n_words = native.host_spectrum_sparse(arr, k)
+        else:
+            ucodes, ucounts, n_words = oracle.count_spectrum_sparse(cat, k)
+        regions = oracle.find_regions(cat, 0, min_w, min_score,
+                                      SparseRanks(ucodes, ucounts), k, thr)
+        return WideRegionResult(
+            _as_region_array(_per_sequence(regions, kept, offsets)),
+            ucodes, ucounts, n_words)
     nbases = torch.from_numpy(arr).to(dev)
     res, out = _pm_device_regions(nbases, arr.shape[0], k, min_w, min_score,
                                   thr, dev, block, cand_blocks)

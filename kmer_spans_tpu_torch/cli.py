@@ -1,8 +1,12 @@
 """Command-line interface of the port: ``python -m kmer_spans_tpu_torch.cli``.
 
 The subcommands and flags of ``kmer_spans_tpu/cli.py``, printing the same
-text, with ``--device`` (``cuda`` by default, or ``cpu`` for the kernels'
-plain versions) in place of ``--backend``:
+text.  ``--backend`` takes ``auto`` (the default: the device path),
+``host`` (the sequential oracle) or ``native`` (the host C++ library), as
+the api does; ``--device`` (``cuda`` by default, or ``cpu`` for the
+kernels' plain versions) is where ``auto`` runs, and stands in for the
+reference's ``--backend jax``.  ``stream`` and ``windows`` have no
+``--backend``, as in the reference: they run on the device.
 
   count    k-mer spectrum of FASTA input (optionally write .bin spectrum)
   spans    low-complexity / repeat span calling
@@ -37,6 +41,10 @@ def _load_seqs(path, min_l=0):
 def _add_common(sp):
     sp.add_argument("fasta", help="FASTA file (plain or .gz)")
     sp.add_argument("-k", type=int, default=8)
+    sp.add_argument("--backend", default="auto",
+                    choices=["auto", "host", "native"],
+                    help="auto: the device path on --device; host: the "
+                    "sequential oracle; native: the host C++ library")
     _add_device(sp)
 
 
@@ -57,7 +65,8 @@ def cmd_count(args):
     from . import api
 
     names, seqs = _load_seqs(args.fasta, args.min_l)
-    res = api.kmer_counts(seqs, args.k, device=args.device)
+    res = api.kmer_counts(seqs, args.k, device=args.device,
+                          backend=args.backend)
     if args.out:
         from .io.spectrum_file import write_kmers
 
@@ -82,13 +91,13 @@ def cmd_spans(args):
     if args.scoring == "rank":
         res = api.kmer_low_comp_regions(
             seqs, args.k, args.min_width, args.min_score, thr=args.thr,
-            device=args.device,
+            device=args.device, backend=args.backend,
         )
     else:
         res = api.kmer_spans(
             seqs, args.k, scoring=args.scoring, min_width=args.min_width,
             min_score=args.min_score, thr=args.thr, f_t=args.f_t,
-            device=args.device,
+            device=args.device, backend=args.backend,
         )
     _write_regions(res.regions, lambda i: names[i])
     print(f"# {len(res.regions)} regions, {int(res.n[0])} k-mers counted",
@@ -172,7 +181,7 @@ def cmd_wide(args):
     names, seqs = _load_seqs(args.fasta, args.min_l)
     res = api.kmer_wide_regions(
         seqs, args.k, args.min_width, args.min_score, thr=args.thr,
-        device=args.device)
+        device=args.device, backend=args.backend)
     _write_regions(res.regions, lambda i: names[i])
     print(f"# {len(res.regions)} regions, {res.n_words} k-mers, "
           f"{len(res.spectrum_codes)} distinct (sparse spectrum)",
@@ -191,7 +200,7 @@ def cmd_regions(args):
                 scores[kmer] = float(val)
     res = api.kmer_regions(
         seqs, args.k, scores, args.min_width, args.min_score,
-        device=args.device,
+        device=args.device, backend=args.backend,
     )
     _write_regions(res.regions, lambda i: names[i])
 
@@ -236,7 +245,7 @@ def cmd_lr(args):
                 ks.append(float(seed))
                 ts.append(float(trans))
     res = api.lr_regions(seqs, (args.k, args.min_length), kmers, ks, ts,
-                         device=args.device)
+                         device=args.device, backend=args.backend)
     _write_regions(res.regions, lambda i: names[i - 1])
 
 

@@ -2,12 +2,16 @@
 // ctypes by kmer_spans_tpu_torch/utils/native.py).
 //
 // The port's own copy of the entry points it calls from
-// native/kmerspans_native.cpp: the spectrum counts (ks_count, ks_count_mt,
-// ks_count_radix), the exact f64 rank chain (ks_rank_chain,
+// native/kmerspans_native.cpp: FASTA byte packing (ks_pack), the spectrum
+// counts (ks_count, ks_count_mt, ks_count_radix, and the sparse
+// ks_count_sparse for wide k), the sequential span caller of the native
+// backend (ks_spans), the exact f64 rank chain (ks_rank_chain,
 // ks_chain_from_hist), the integer mass of queried codes
 // (ks_mass_of_codes) and the reference-exact candidate replays
 // (ks_replay_packed, ks_replay_scores).  Same arithmetic, same operation
-// order, same f64 folds as the original.  ks_replay_tr, the transition-
+// order, same f64 folds as the original (ks_pack alone differs: it
+// returns the number of bytes it wrote, where the original returns
+// nothing).  ks_replay_tr, the transition-
 // score replay, is the C form of the port's spans/tr_pipeline.py
 // replay_tr_segment.
 //
@@ -23,6 +27,24 @@
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Packing: byte -> 2-bit base, with N ('n'/'N') encoded as 4.
+// Every non-N byte maps through (c >> 1) & 3 (A=0,C=1,T=2,G=3); see
+// SURVEY.md A.1 — IUPAC codes are 2-bit mapped, not skipped.
+// ---------------------------------------------------------------------------
+int64_t ks_pack(const uint8_t* in, int64_t n, uint8_t* out) {
+    static uint8_t table[256];
+    static bool init = false;
+    if (!init) {
+        for (int c = 0; c < 256; ++c) table[c] = (uint8_t)((c >> 1) & 3);
+        table[(unsigned char)'n'] = 4;
+        table[(unsigned char)'N'] = 4;
+        init = true;
+    }
+    for (int64_t i = 0; i < n; ++i) out[i] = table[in[i]];
+    return n;
+}
 
 // ---------------------------------------------------------------------------
 // Spectrum counting over packed bases (4 == N).  Counts every complete
@@ -49,6 +71,93 @@ int64_t ks_count(const uint8_t* nb, int64_t n, int32_t k, int32_t* counts) {
         }
     }
     return words;
+}
+
+// ---------------------------------------------------------------------------
+// Span caller: sequential reference-exact scan (SURVEY A.3/A.4).
+// Scored positions: k-mer end positions a+k-1 .. b-1 of each segment [a,b]
+// (the final k-mer of a segment is never scored).  Regions reported as
+// 1-based last-base positions of (first-positive, first-argmax) k-mers.
+// Emits into caller-provided buffers; the return value is the TOTAL number
+// of regions found (only the first `capacity` are written — if the return
+// exceeds capacity, call again with more space).
+// If scan_counts != NULL, every scored position increments
+// scan_counts[code], and rescanned positions count again (the reference's
+// double-counting quirk).
+// ---------------------------------------------------------------------------
+int64_t ks_spans(const uint8_t* nb, int64_t n, int32_t k,
+                 const double* weights, double threshold,
+                 int64_t min_width, double min_score,
+                 int64_t* out_beg, int64_t* out_end, double* out_score,
+                 int64_t capacity, int64_t* scan_counts) {
+    const uint64_t mask = (1ull << (2 * k)) - 1;
+    int64_t nreg = 0;
+    int64_t i = 0;
+    while (i < n) {
+        while (i < n && nb[i] == 4) ++i;
+        if (i >= n) break;
+        // segment [a, b]
+        int64_t a = i;
+        int64_t b = a;
+        while (b < n && nb[b] != 4) ++b;
+        --b;  // inclusive end
+        i = b + 1;
+        if (b - a + 1 < k) continue;
+        // restartable scan over scored positions (k-mer ends a+k-1 .. b-1)
+        int64_t start_end = a + k - 1;  // first k-mer end position
+        int64_t resume = start_end;
+        while (resume <= b - 1) {
+            // build k-mer ending at `resume`
+            uint64_t off = 0;
+            for (int64_t p = resume - k + 1; p <= resume; ++p)
+                off = ((off << 2) | nb[p]) & mask;
+            double score = 0, last = 0, maxs = 0;
+            int64_t reg_beg = 0, max_pos = 0;
+            int64_t p = resume;
+            bool jumped = false;
+            for (; p <= b - 1; ++p) {
+                if (p > resume) off = ((off << 2) | nb[p]) & mask;
+                if (scan_counts) ++scan_counts[off];
+                double s = weights[off] - threshold;
+                score = last + s;
+                if (score < 0) score = 0;
+                int64_t pos1 = p + 1;  // 1-based last base
+                if (last == 0 && score > 0) {
+                    reg_beg = pos1; max_pos = pos1; maxs = score;
+                }
+                if (score == 0 && last > 0) {
+                    if (max_pos - reg_beg >= min_width && maxs >= min_score) {
+                        if (nreg < capacity) {
+                            out_beg[nreg] = reg_beg;
+                            out_end[nreg] = max_pos;
+                            out_score[nreg] = maxs;
+                        }
+                        ++nreg;
+                        resume = max_pos;  // 0-based end of next kmer
+                        jumped = true;
+                        break;
+                    }
+                    maxs = 0; max_pos = pos1;
+                }
+                if (score > maxs) { maxs = score; max_pos = pos1; }
+                last = score;
+            }
+            if (jumped) continue;
+            // terminal emission (segment end with positive score)
+            if (score > 0 && max_pos - reg_beg >= min_width && maxs >= min_score) {
+                if (nreg < capacity) {
+                    out_beg[nreg] = reg_beg;
+                    out_end[nreg] = max_pos;
+                    out_score[nreg] = maxs;
+                }
+                ++nreg;
+                resume = max_pos;
+                continue;
+            }
+            break;  // segment done
+        }
+    }
+    return nreg;
 }
 
 // ---------------------------------------------------------------------------
@@ -557,6 +666,71 @@ int64_t ks_count_radix(const uint8_t* nb, int64_t n, int32_t k,
     int64_t words = 0;
     for (int32_t t = 0; t < nthreads; ++t) words += words_t[t];
     return words;
+}
+
+// ---------------------------------------------------------------------------
+// SPARSE spectrum for wide k (16 <= k <= 31): distinct int64 codes +
+// counts, ascending — the spectrum of the native backend's wide caller
+// (a dense table would be 68 GB at k=17).  Threads partition the CODE
+// space by top bits (each re-walks the genome, as ks_count_mt — the
+// rolling walk is cheap), sort their partitions independently, and the
+// partitions concatenate ordered.  Returns the number of distinct codes
+// (only the first `cap` entries are written — the caller's buffers are
+// safe at cap = n since distinct <= words <= n); *n_words_out gets the
+// total counted k-mers.
+// ---------------------------------------------------------------------------
+int64_t ks_count_sparse(const uint8_t* nb, int64_t n, int32_t k,
+                        int64_t* ucodes, int64_t* ucounts, int64_t cap,
+                        int64_t* n_words_out, int32_t nthreads) {
+    const uint64_t mask = (k >= 32) ? ~0ull : ((1ull << (2 * k)) - 1);
+    if (nthreads < 1) nthreads = 1;
+    std::vector<std::vector<int64_t>> part(nthreads);
+    std::vector<int64_t> words_t(nthreads, 0);
+    std::vector<std::thread> ths;
+    for (int32_t t = 0; t < nthreads; ++t) {
+        const uint64_t lo = (mask + 1) / nthreads * t;
+        const uint64_t hi = (t == nthreads - 1)
+            ? mask + 1 : (mask + 1) / nthreads * (t + 1);
+        ths.emplace_back([=, &part, &words_t]() {
+            std::vector<int64_t>& v = part[t];
+            int64_t w = 0;
+            int64_t i = 0;
+            while (i < n) {
+                while (i < n && nb[i] == 4) ++i;
+                uint64_t off = 0;
+                int32_t have = 0;
+                while (i < n && nb[i] != 4) {
+                    off = ((off << 2) | nb[i]) & mask;
+                    ++i;
+                    if (have < k) ++have;
+                    if (have >= k) {
+                        ++w;
+                        if (off >= lo && off < hi)
+                            v.push_back((int64_t)off);
+                    }
+                }
+            }
+            std::sort(v.begin(), v.end());
+            words_t[t] = w;
+        });
+    }
+    for (auto& th : ths) th.join();
+    *n_words_out = words_t.empty() ? 0 : words_t[0];
+    int64_t nd = 0;
+    for (int32_t t = 0; t < nthreads; ++t) {
+        const std::vector<int64_t>& v = part[t];
+        for (size_t i = 0; i < v.size();) {
+            size_t j = i;
+            while (j < v.size() && v[j] == v[i]) ++j;
+            if (nd < cap) {
+                ucodes[nd] = v[i];
+                ucounts[nd] = (int64_t)(j - i);
+            }
+            ++nd;
+            i = j;
+        }
+    }
+    return nd;
 }
 
 // ---------------------------------------------------------------------------

@@ -154,22 +154,28 @@ def blocked_scan_prefixes(s2d: torch.Tensor, scored2d: torch.Tensor):
     """Inclusive max-plus prefix transforms over row-major [nb, B] tiles.
 
     Counterpart of the reference's blocked_scan_prefixes (the mesh
-    pipeline's scan).  Returns (FA, FB, (tA, tB)), float64: S at (i, j)
-    for the state x entering the tile is max(x + FA[i, j], FB[i, j]), and
-    (tA, tB) is the whole tile's transform, for carries across devices.
+    pipeline's scan, and the dense span scan of ops/scan.py).  Returns
+    (FA, FB, (tA, tB)), float64: S at (i, j) for the state x entering the
+    tile is max(x + FA[i, j], FB[i, j]), and (tA, tB) is the whole tile's
+    transform, for carries across devices.  A score of -inf at a scored
+    position acts as an unscored one, as in the reference's pairs (both
+    are (-inf, 0)).
 
     Each row in closed form (ops/scan.py's pairs, b = 0 everywhere): with
     T the row's cumsum of s over scored positions and the resets the
     unscored positions, A = T before the row's first reset and -inf from
     it on, and B_j = T_j - min(T_u .. T_j), u the last reset at or before
-    j (the row start if none).  The running min restarts at each reset by
-    a segment offset: T - seg * C, C above the range of T, so a later
-    segment's values lie below every earlier one's.  In float64 (T within
-    a row, and seg * C, stay below 2^28 for |s| < 1 and rows of 8192: an
-    error below 2^-24), where an f32 cumsum would cancel (the fault class
-    of compose_summaries_int64).  Rows compose with scan_pairs, which
-    never subtracts.  The reference's f32 associative scans are within
-    2e-4 of the exact recurrence; this form is closer.
+    j (the row start if none).  The position of that running min comes
+    from a cummin that restarts at each reset through a segment offset,
+    T - seg * C with C above the range of T (a later segment's keys lie
+    below every earlier one's); B is then the difference of two of the
+    row's f64 cumsum values, so it keeps their precision (a few ulp of
+    the row's largest |T|), and the offset's rounding can only pick, in a
+    near tie, a minimum within an ulp of seg * C of the true one.  All in
+    float64, where an f32 cumsum would cancel (the fault class of
+    compose_summaries_int64).  Rows compose with scan_pairs, which never
+    subtracts.  The reference's f32 associative scans are within 2e-4 of
+    the exact recurrence; this form is closer.
     """
     from .scan import scan_pairs
 
@@ -179,20 +185,34 @@ def blocked_scan_prefixes(s2d: torch.Tensor, scored2d: torch.Tensor):
     FB = torch.empty_like(FA)
     rows = max(1, _PREFIX_GROUP // B)
     for r0 in range(0, nb, rows):
-        sc = scored2d[r0:r0 + rows]
-        T = torch.cumsum(torch.where(sc, s2d[r0:r0 + rows].to(torch.float64),
-                                     0.0), dim=1)
+        s = s2d[r0:r0 + rows].to(torch.float64)
+        sc = scored2d[r0:r0 + rows] & (s > neg)
+        T = torch.cumsum(torch.where(sc, s, 0.0), dim=1)
         seg = torch.cumsum(~sc, dim=1)
         off = seg.to(torch.float64) * (2.0 * float(T.abs().amax()) + 1.0)
-        FB[r0:r0 + rows] = T - (torch.cummin(T - off, dim=1).values + off)
+        at = torch.cummin(T - off, dim=1).indices
+        FB[r0:r0 + rows] = T - T.gather(1, at)
         FA[r0:r0 + rows] = torch.where(seg == 0, T, neg)
-        del T, seg, off
+        del s, sc, T, seg, off, at
     cA, cB = scan_pairs(FA[:, -1].clone(), FB[:, -1].clone())
     RA = torch.cat([cA.new_zeros(1), cA[:-1]])
     RB = torch.cat([cB.new_full((1,), neg), cB[:-1]])
     FB = torch.maximum(RB[:, None] + FA, FB)
     FA += RA[:, None]
     return FA, FB, (cA[-1], cB[-1])
+
+
+def blocked_scan(s2d: torch.Tensor, scored2d: torch.Tensor):
+    """Max-plus scan over row-major [nb, B] tiles, initial state 0.
+
+    Counterpart of the reference's blocked_scan.  Returns S [nb, B] (the
+    running score at each position, 0 at unscored ones) and the whole
+    tile's transform (A, B), all cast from blocked_scan_prefixes' float64
+    to ``s2d.dtype``.
+    """
+    FA, FB, (tA, tB) = blocked_scan_prefixes(s2d, scored2d)
+    return torch.maximum(FA, FB).to(s2d.dtype), (tA.to(s2d.dtype),
+                                                 tB.to(s2d.dtype))
 
 
 def blocked_scan_summaries_int(s2d: torch.Tensor, scored2d: torch.Tensor):

@@ -2,12 +2,13 @@
 
 Copied from ``kmer_spans_tpu/oracle/reference.py`` (spectrum count, dense
 and sparse, weighted ranks, span caller, transition-score caller, windowed
-distributions) and ``kmer_spans_tpu/utils/testgen.py`` (the golden
-genome), so that the port and chip_smoke.py import nothing of the JAX
-package.  Straightforward sequential numpy/python code with the
-reference's exact f64 rank chain and region recurrences, bit-identical to
-the C reference (src/kmer_spans.c:135-155, :189-202, :243-307, :329-395,
-:413-449).  Never on the card path: the port's yardstick only.
+distributions), so that the port and chip_smoke.py import nothing of the
+JAX package; ``golden_genome`` is re-exported from utils/testgen.py.
+Straightforward sequential numpy/python code with the reference's exact
+f64 rank chain and region recurrences, bit-identical to the C reference
+(src/kmer_spans.c:135-155, :189-202, :243-307, :329-395, :413-449).  It is
+the api's ``backend="host"`` and the yardstick of every device path; it
+never runs on the card.
 
 Coordinates: a region's (beg, end) are the 1-based positions of the last
 base of its first positive-scoring and its first maximum-scoring k-mer.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from .encoding import MAX_K, pack
+from .utils.testgen import golden_genome  # noqa: F401
 
 __all__ = ["count_spectrum", "count_spectrum_sparse", "find_regions",
            "find_tr_regions", "golden_genome", "weighted_ranks",
@@ -374,33 +376,3 @@ def windowed_distributions(
             if counts_pos is not None:
                 counts_pos[a : a + n_windows, i] = wc
     return dist
-
-
-_LCG_MUL = np.uint64(6364136223846793005)
-_LCG_ADD = np.uint64(1442695040888963407)
-
-
-def lcg_bases(n: int, seed: int = 42) -> str:
-    """n pseudo-random bases from the PCG-style LCG of the golden genome."""
-    state = np.uint64(seed)
-    out = np.empty(n, dtype=np.uint8)
-    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
-    with np.errstate(over="ignore"):
-        for i in range(n):
-            state = state * _LCG_MUL + _LCG_ADD
-            out[i] = letters[int((state >> np.uint64(33)) & np.uint64(3))]
-    return out.tobytes().decode("ascii")
-
-
-def golden_genome(n: int = 100_000, seed: int = 42) -> str:
-    """The golden genome (SURVEY.md Appendix B): LCG bases + three planted
-    repeat islands."""
-    seq = list(lcg_bases(n, seed))
-    islands = [
-        (20000, "AG" * 300),   # [20000, 20600)
-        (50000, "CAG" * 300),  # [50000, 50900)
-        (80000, "T" * 400),    # [80000, 80400)
-    ]
-    for start, rep in islands:
-        seq[start : start + len(rep)] = rep
-    return "".join(seq)

@@ -3,7 +3,8 @@ the sparse wide-k spectrum, windowed distributions and transition-score
 regions of one sequence.
 
 Counterpart of ``kmer_spans_tpu/parallel/device.py`` (``bucket_size``,
-``device_count_spectrum``, ``device_window_dist``, ``device_tr_regions``);
+``device_count_spectrum``, ``device_codes_scored``, ``device_window_dist``,
+``device_tr_regions``);
 ``device_sparse_spectrum`` computes on the device what the reference's
 host recount ``native.host_spectrum_sparse`` computes.
 Each sequence is staged on the device padded to a power-of-two bucket,
@@ -22,7 +23,7 @@ import torch
 from ..device import resolve_device
 from ..encoding import MAX_K, PackedSeq
 from ..ops import histogram
-from ..ops.blocked import blocked_codes, blocked_codes_wide
+from ..ops.blocked import blocked_codes, blocked_codes_wide, blocked_scored
 from ..spans.tr_pipeline import (
     finish_tr_spans,
     make_tr_pipeline,
@@ -164,3 +165,19 @@ def device_tr_regions(p: PackedSeq, k: int, ks: np.ndarray, ts: np.ndarray,
     return finish_tr_spans(out, npad, min_length, ks, ts, block=block,
                            seq_id=seq_id, pipe=pipe, nbases_dev=nbases,
                            ks_q_dev=ksq_dev, ts_q_dev=tsq_dev, seq_len=p.n)
+
+
+def device_codes_scored(p: PackedSeq, k: int, device="cuda"):
+    """Codes and scored mask of one sequence, computed on ``device`` and
+    trimmed back to its length: (int32 codes, 0 where the k-mer is
+    invalid; bool scored), numpy."""
+    dev = resolve_device(device)
+    npad = bucket_size(p.n)
+    block = min(npad, _COUNT_BLOCK)
+    nbases = torch.from_numpy(staged_nbases(p, npad)).to(dev)
+    v2 = (nbases < 4).reshape(-1, block)
+    codes, kv = blocked_codes((nbases & 3).reshape(-1, block), v2, k)
+    scored = blocked_scored(v2, kv)
+    codes = torch.where(kv, codes, 0)
+    return (codes.reshape(-1)[:p.n].cpu().numpy(),
+            scored.reshape(-1)[:p.n].cpu().numpy())

@@ -7,10 +7,15 @@ per-process temporary file that ``os.replace`` moves into place, so
 concurrent processes never load a half-written library.  A failed build is
 not remembered: the next call tries again.  Where there is no compiler,
 ``available()`` is False and every entry point returns None (or, for
-``host_spectrum``, takes its numpy path), so the callers' numpy paths run.
+``host_spectrum``, takes its numpy path), so the callers' numpy paths
+run; the api's ``backend="native"`` raises there instead.
 
 Copied from ``kmer_spans_tpu/utils/native.py`` for the entry points the
-port calls: same arguments, same results.
+port calls: same arguments, same results.  ``find_spans``,
+``count_spectrum`` and ``host_spectrum_sparse`` serve the api's
+``backend="native"``; ``pack_nbases`` is bound as the reference binds it,
+and no caller of the port uses it yet; the rest serve the host finishers
+of the device paths.
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared",
 _P, _I32, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
                         ctypes.c_double)
 _SIGNATURES = {
+    "ks_pack": (_P, _I64, _P),
     "ks_count": (_P, _I64, _I32, _P),
+    "ks_count_sparse": (_P, _I64, _I32, _P, _P, _I64, _P, _I32),
+    "ks_spans": (_P, _I64, _I32, _P, _F64, _I64, _F64, _P, _P, _P, _I64,
+                 _P),
     "ks_count_mt": (_P, _I64, _I32, _P, _I32),
     "ks_count_radix": (_P, _I64, _I32, _P, _I32),
     "ks_rank_chain": (_P, _I64, _F64, _P),
@@ -111,6 +120,17 @@ def available() -> bool:
     return _load() is not None
 
 
+def pack_nbases(raw: np.ndarray) -> np.ndarray | None:
+    """bytes -> nbases (2-bit values, N == 4); None if native unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    out = np.empty(raw.shape[0], dtype=np.uint8)
+    lib.ks_pack(raw.ctypes.data, raw.shape[0], out.ctypes.data)
+    return out
+
+
 def count_spectrum(nbases: np.ndarray, k: int) -> tuple[np.ndarray, int] | None:
     """Native sequential spectrum count; None if unavailable."""
     lib = _load()
@@ -165,6 +185,31 @@ def host_spectrum(
     counts = np.bincount(
         codes[kv], minlength=1 << (2 * k)).astype(np.int64)
     return counts, int(kv.sum())
+
+
+def host_spectrum_sparse(
+    nbases: np.ndarray, k: int, threads: int = 0,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Sparse host spectrum for wide k (16..31): distinct int64 codes and
+    their counts, ascending (threads partition the code space and sort
+    independently; 0 takes up to 8).  Returns (ucodes, ucounts, n_words),
+    or None if native is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
+    if threads == 0:
+        threads = min(os.cpu_count() or 1, 8)
+    n = nbases.shape[0]
+    cap = max(n, 1)
+    ucodes = np.empty(cap, dtype=np.int64)
+    ucounts = np.empty(cap, dtype=np.int64)
+    nw = np.zeros(1, dtype=np.int64)
+    nd = lib.ks_count_sparse(
+        nbases.ctypes.data, n, k, ucodes.ctypes.data,
+        ucounts.ctypes.data, cap, nw.ctypes.data, threads)
+    assert nd <= cap  # distinct <= words <= n by construction
+    return ucodes[:nd].copy(), ucounts[:nd].copy(), int(nw[0])
 
 
 def chain_from_hist(v_vals, n_codes, total, pm) -> np.ndarray | None:
@@ -323,4 +368,43 @@ def replay_packed(
         )
         if nreg <= cap:
             return beg[:nreg], end[:nreg], score[:nreg]
+        cap = int(nreg) + 16
+
+
+def find_spans(
+    nbases: np.ndarray,
+    k: int,
+    weights: np.ndarray,
+    threshold: float,
+    min_width: int,
+    min_score: float,
+    want_scan_counts: bool = False,
+):
+    """Native sequential span caller (reference-exact); None if unavailable.
+
+    Returns (beg, end, score arrays, scan_counts int64 [4^k] or None).
+    The region buffers start at 1024 and grow to the count the caller
+    reports, with the call repeated.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    sc = np.zeros(1 << (2 * k), dtype=np.int64) if want_scan_counts else None
+    cap = 1024
+    while True:
+        beg = np.empty(cap, dtype=np.int64)
+        end = np.empty(cap, dtype=np.int64)
+        score = np.empty(cap, dtype=np.float64)
+        if sc is not None:
+            sc[:] = 0
+        nreg = lib.ks_spans(
+            nbases.ctypes.data, nbases.shape[0], k,
+            weights.ctypes.data, threshold, min_width, min_score,
+            beg.ctypes.data, end.ctypes.data, score.ctypes.data,
+            cap, sc.ctypes.data if sc is not None else None,
+        )
+        if nreg <= cap:
+            return beg[:nreg], end[:nreg], score[:nreg], sc
         cap = int(nreg) + 16

@@ -171,3 +171,63 @@ def test_wide_is_not_ported_yet(fasta, capsys):
 def test_device_defaults_to_cuda(fasta):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["spans", fasta, "-k", "8"])
+
+
+def _both_backend(argv, capsys, backend):
+    """(port out, port err, JAX out, JAX err) with --backend on both: the
+    port's default --device cuda is not used under a CPU backend."""
+    cli.main(argv + ["--backend", backend])
+    got = capsys.readouterr()
+    ref_cli.main(argv + ["--backend", backend])
+    want = capsys.readouterr()
+    return got.out, got.err, want.out, want.err
+
+
+@pytest.mark.parametrize("backend", ["host", "native"])
+@pytest.mark.parametrize("cmd", ["spans", "threshold", "count", "wide"])
+def test_cpu_backends_print_what_the_jax_cli_prints(fasta, capsys, backend,
+                                                    cmd):
+    argv = {
+        "spans": ["spans", fasta, "-k", "8"],
+        "threshold": ["spans", fasta, "-k", "8", "--scoring", "threshold",
+                      "--f-t", "0.0001", "--min-score", "50"],
+        "count": ["count", fasta, "-k", "6", "--top", "5"],
+        "wide": ["wide", fasta, "-k", "17"],
+    }[cmd]
+    out, err, want, want_err = _both_backend(argv, capsys, backend)
+    assert out == want and err == want_err
+    if cmd != "count":
+        assert len(out.splitlines()) == 4
+    if cmd == "wide":
+        assert err.startswith("# 3 regions, 99984 k-mers, 98137 distinct")
+
+
+@pytest.mark.parametrize("backend", ["host", "native"])
+def test_cpu_backends_regions_and_lr(tmp_path, two_scaffolds, capsys,
+                                     backend):
+    scores = tmp_path / "scores.tsv"
+    with open(scores, "w") as fh:
+        for km in all_kmers(2):
+            fh.write(f"{km}\t{3.0 if km == 'AG' else -1.0}\n")
+    out, _, want, _ = _both_backend(
+        ["regions", two_scaffolds, "-k", "2", "--scores", str(scores),
+         "--min-width", "50", "--min-score", "20"], capsys, backend)
+    assert out == want and len(out.splitlines()) > 1
+    lr = tmp_path / "lr.tsv"
+    with open(lr, "w") as fh:
+        for km in sorted(all_kmers(2)):
+            fh.write(f"{km}\t{1.0 if km in ('AG', 'GA') else -1.0}\t"
+                     f"{0.8 if km in ('AG', 'GA') else -0.5}\n")
+    out, _, want, _ = _both_backend(
+        ["lr", two_scaffolds, "-k", "2", "--scores", str(lr),
+         "--min-length", "100"], capsys, backend)
+    assert out == want and out.splitlines()[1].startswith("s1\t")
+
+
+@pytest.mark.parametrize("backend", ["jax", "gpu"])
+def test_backend_choices(fasta, backend, capsys):
+    """The port has no "jax" backend: argparse refuses it, as any name
+    outside auto, host and native."""
+    with pytest.raises(SystemExit):
+        cli.main(["spans", fasta, "--backend", backend])
+    assert "invalid choice" in capsys.readouterr().err

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from kmer_spans_tpu import api as ref_api
+from kmer_spans_tpu import config as ref_config
 from kmer_spans_tpu import encoding as ref_encoding
 from kmer_spans_tpu import oracle as ref_oracle
 from kmer_spans_tpu.io import fasta as ref_fasta
@@ -30,12 +31,12 @@ from kmer_spans_tpu.models import scoring as ref_scoring
 from kmer_spans_tpu.spans import extract as ref_extract
 from kmer_spans_tpu.stats import ranks as ref_ranks
 from kmer_spans_tpu.utils import testgen as ref_testgen
-from kmer_spans_tpu_torch import api, encoding, oracle
+from kmer_spans_tpu_torch import api, config, encoding, oracle
 from kmer_spans_tpu_torch.io import fasta, spectrum_file
 from kmer_spans_tpu_torch.models import scoring
 from kmer_spans_tpu_torch.spans import extract
 from kmer_spans_tpu_torch.stats import ranks
-from kmer_spans_tpu_torch.utils import native
+from kmer_spans_tpu_torch.utils import native, testgen
 
 from conftest import random_seq
 
@@ -71,7 +72,9 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax_package():
                 "kmer_spans_tpu_torch.parallel.pipeline",
                 "kmer_spans_tpu_torch.parallel.sharded",
                 "kmer_spans_tpu_torch.parallel.sharded_scan",
-                "kmer_spans_tpu_torch.parallel.wide_scan"} <= set(mods), mods
+                "kmer_spans_tpu_torch.parallel.wide_scan",
+                "kmer_spans_tpu_torch.config",
+                "kmer_spans_tpu_torch.utils.testgen"} <= set(mods), mods
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
@@ -102,6 +105,29 @@ def test_the_multi_device_modules_load_no_jax_package():
     assert res.returncode == 0, res.stderr
 
 
+def test_config_testgen_and_the_host_backends_load_no_jax_package():
+    """config.py, utils/testgen.py and the host library's bindings, and
+    the api driven through backend="host" and "native", import no JAX
+    package."""
+    res = _run("""
+        import sys
+        from kmer_spans_tpu_torch import api
+        from kmer_spans_tpu_torch.config import SpanConfig
+        from kmer_spans_tpu_torch.utils import native, testgen
+        SpanConfig().validate()
+        g = testgen.golden_genome()
+        for backend in ("host", "native"):
+            r = api.kmer_low_comp_regions(g, 8, 100, 20.0, backend=backend)
+            assert list(r.regions["beg"]) == [20008, 50008, 80007]
+        assert native.pack_nbases(testgen.realistic_genome(2000, 1) + 65
+                                  ).shape == (2000,)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "kmer_spans_tpu"))
+        assert not bad, bad
+    """)
+    assert res.returncode == 0, res.stderr
+
+
 def _imported_roots(path: Path) -> set:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -128,6 +154,52 @@ def genomes(golden):
     s[9000:9700] = "TC" * 350
     s[25000:25450] = "A" * 450
     return {"golden": golden, "random": "".join(s)}
+
+
+@pytest.mark.parametrize("cls", ["SpanConfig", "CountConfig", "WindowConfig"])
+def test_config_fields_and_defaults_equal_the_reference(cls):
+    got = {f.name: f.default for f in dataclasses.fields(getattr(config, cls))}
+    want = {f.name: f.default
+            for f in dataclasses.fields(getattr(ref_config, cls))}
+    if cls != "WindowConfig":
+        # the port's stand-in for the reference's backend="jax"
+        assert got.pop("device") == "cuda"
+    assert got == want
+    assert config.SpanConfig().backend == "auto"
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"k": 8}, {"k": 0}, {"k": 15}, {"k": 16}, {"thr": 1.5},
+    {"thr": 0.0}, {"thr": 1.5, "scoring": "threshold"},
+    {"chunk_bases": 1000, "block": 512}, {"chunk_bases": 1024, "block": 512},
+])
+def test_span_config_validate_rejects_what_the_reference_rejects(kw):
+    try:
+        ref_config.SpanConfig(**kw).validate()
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if want is None:
+        cfg = config.SpanConfig(**kw)
+        assert cfg.validate() is cfg
+    else:
+        with pytest.raises(ValueError) as e:
+            config.SpanConfig(**kw).validate()
+        assert str(e.value) == want
+
+
+def test_testgen_equals_the_reference():
+    assert testgen.lcg_bases(5000, 3) == ref_testgen.lcg_bases(5000, 3)
+    assert testgen.golden_genome() == ref_testgen.golden_genome()
+    assert oracle.golden_genome is testgen.golden_genome
+    rng = np.random.default_rng(8)
+    for counts in (rng.integers(0, 1 << 40, 4096), np.zeros(16, np.int64),
+                   np.arange(300)):
+        assert testgen.spectrum_checksum(counts) == \
+            ref_testgen.spectrum_checksum(counts)
+    got = testgen.realistic_genome(200_000, 11)
+    want = ref_testgen.realistic_genome(200_000, 11)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_golden_genome_is_the_reference_string(golden):
@@ -523,6 +595,9 @@ def test_numpy_path_where_there_is_no_compiler(numpy_path):
                                     np.arange(3)) is None
     assert numpy_path.chain_from_hist([1], [8], 8.0, [0, 3]) is None
     assert numpy_path.count_spectrum(np.zeros(10, np.uint8), 2) is None
+    assert numpy_path.pack_nbases(np.zeros(10, np.uint8)) is None
+    assert numpy_path.find_spans(np.zeros(10, np.uint8), 2, np.zeros(16),
+                                 0.0, 1, 1.0) is None
 
 
 def test_a_failed_build_is_not_remembered(monkeypatch, tmp_path):
