@@ -16,9 +16,14 @@ Run from the repository root.  Phases, each of which raises on failure:
      2^17 identical codes; for the fused screen blocks of 256 to 32768
      with 2- and 4-bit classes, a block with no scored position, grids
      with fewer blocks than CTAs, tables of 32 to 2^14 words; for the
-     value histogram sizes 1 to 2^24 (4^12) in its sliced, cluster and
-     global forms, 2^17 identical values, all invalid, offset views of
-     values and valid whose alignments agree and differ; for the class
+     value histogram sizes 1 to 2^24 (4^12) in all five of its forms
+     (sliced, cluster, global, partitioned, cluster_merged), 2^17
+     identical values, all invalid, offset views of values and valid
+     whose alignments agree and differ, and at 65536, 4^9 and 4^12 bins
+     every value in one bin, all in one part of 2^15 bins, values on part
+     boundaries, half of them negative or >= size; 4^13 and 4^15 bins in
+     the partitioned and global forms; the partitioned form's chunked
+     walk under a 4 MiB scratch cap; for the class
      gather tables of 2
      to 2^15 words, random entries, 2^17 identical entries, entries all in
      the last word, a length that is not a multiple of 4, an unaligned
@@ -43,7 +48,9 @@ Run from the repository root.  Phases, each of which raises on failure:
      histogram at the k = 9 count (4^9 bins, every form), the k = 13 pm
      screen's run lengths (256 bins), the k = 12 sort screen's two run
      histograms (65536 bins each, every form), and the exact path's 4^8,
-     4^10 and 4^12 spectra and k = 8 scan histogram (every form), the
+     4^10 and 4^12 spectra and k = 8 scan histogram (every form) and its
+     4^14 and 4^15 spectra (the global and partitioned forms; at 4^9
+     and 4^12 the partitioned form's passes each, from torch.profiler), the
      window path's count histograms (16 dimers, window 200: 3328 bins,
      and 154 scaffolds' 154 * 3232 bins, every form, beside the mask they
      need), and the class gather's k = 9 codes (32768 words) and k = 12
@@ -226,6 +233,85 @@ def aug_case(rng, n, k):
             | (scored.astype(np.int32) << 17)).astype(np.int32)
 
 
+def edge_values(rng, case: str, size: int, n: int):
+    """K3 inputs at the partitioned form's edges: every value in one bin;
+    all in one part (2^15 bins), spread over it; on part boundaries
+    (2^15 j - 1, 2^15 j); half of them negative or >= size."""
+    from kmer_spans_tpu_torch.ops.histogram import SLICE_BINS
+
+    parts = -(-size // SLICE_BINS)
+    valid = rng.random(n) < 0.9
+    if case == "one bin":
+        values = np.full(n, size // 3)
+        valid[:] = True
+    elif case == "one part":
+        lo = parts // 2 * SLICE_BINS
+        values = rng.integers(lo, min(size, lo + SLICE_BINS), n)
+    elif case == "part edges":
+        j = np.arange(parts + 1) * SLICE_BINS
+        values = rng.choice(np.clip(np.concatenate([j - 1, j]), 0, size - 1),
+                            n)
+    else:  # "out of range"
+        values = rng.integers(0, size, n)
+        out = rng.random(n) < 0.5
+        values[out] = rng.choice([-1, -(2 ** 31), size, 2 ** 31 - 1],
+                                 int(out.sum()))
+    return values.astype(np.int32), valid
+
+
+def check_histogram_edges(dev, rng) -> None:
+    """Phase 3, K3's edges against plain, exact: the edge_values cases at
+    65536, 4^9 and 4^12 bins in every form; 4^13 and 4^15 bins in the
+    partitioned and global forms; and the partitioned form's chunked walk
+    (a scratch cap of 4 MiB: 2^22 positions in several chunks, offset
+    views aligned alike and unlike)."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops import histogram as hist
+    from kmer_spans_tpu_torch.ops.convert import to_tensor
+
+    n = (1 << 22) + 5
+
+    def same(x, m, size, forms, what):
+        want = hist.histogram_plain(x, m, size)
+        for form in forms:
+            e = max_abs_err(hist.histogram_kernel(x, m, size, form), want)
+            torch.cuda.synchronize()
+            if e:
+                raise AssertionError(f"histogram {what}, size={size}, "
+                                     f"form={form}: max |err| {e}")
+
+    for size in (1 << 16, 1 << 18, 1 << 24):
+        for case in ("one bin", "one part", "part edges", "out of range"):
+            x, m = (to_tensor(a, dev) for a in edge_values(rng, case, size,
+                                                           n))
+            same(x, m, size, hist.FORMS, case)
+        log(f"  histogram size={size}: equal to plain in every form with "
+            "one bin, one part, part edges, out of range")
+    for size in (1 << 26, 1 << 30):
+        values = rng.integers(-3, size + 40, n).astype(np.int32)
+        x, m = to_tensor(values, dev), to_tensor(rng.random(n) < 0.8, dev)
+        same(x, m, size, ("partitioned", "global"), "random")
+    log("  histogram sizes 4^13 and 4^15: equal to plain in the partitioned "
+        "and global forms")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cap = hist.PARTITION_SCRATCH_CAP
+    hist.PARTITION_SCRATCH_CAP = 4 << 20
+    try:
+        for size in (1 << 18, 1 << 24):
+            values = rng.integers(-3, size + 40, n).astype(np.int32)
+            values[9000:9000 + (1 << 17)] = size - 1
+            x = to_tensor(values, dev)
+            m = to_tensor(rng.random(n) < 0.8, dev)
+            chunks = -(-n // hist.partition_plan(n, size, sms).chunk)
+            for args in ((x, m), (x[1:], m[1:]), (x[3:], m[:-3])):
+                same(*args, size, ("partitioned",), f"in {chunks} chunks")
+    finally:
+        hist.PARTITION_SCRATCH_CAP = cap
+    log(f"  histogram partitioned form under a 4 MiB scratch cap: equal to "
+        f"plain in {chunks} chunks, offset views aligned alike and unlike")
+
+
 def check_kernels(dev, seed: int) -> dict:
     """Phase 3: every kernel against its plain version, exact."""
     import torch
@@ -290,7 +376,8 @@ def check_kernels(dev, seed: int) -> dict:
             (x[3:], m[:-3]),
             (x, torch.zeros_like(m)),    # all invalid
         )
-        forms = FORMS if size > SLICE_BINS else ("sliced", "global")
+        forms = FORMS if size > SLICE_BINS else ("sliced", "global",
+                                                 "partitioned")
         for form in forms:
             for args in cases:
                 e = max_abs_err(histogram_kernel(*args, size, form),
@@ -308,6 +395,7 @@ def check_kernels(dev, seed: int) -> dict:
         log(f"  histogram size={size}: equal to plain in the "
             f"{', '.join(forms)} forms (n={n:,}, 2^17 identical values, "
             "offset views aligned alike and unlike, all invalid)")
+    check_histogram_edges(dev, rng)
     for k in (4, 6, 8):
         aug = aug_case(rng, (1 << 22) + 5, k)
         aug[7000:7000 + (1 << 17)] = (1 << 16) | 9  # 2^17 identical codes
@@ -460,24 +548,27 @@ def time_kernels(dev, nbases_dev) -> dict:
     return out
 
 
-def hist_entry(label: str, values, valid, size: int, more=()) -> dict:
-    """Phase 6, K3 at one shape: the wrapper (with its form rule), each
-    form (above 2^15 bins, or all of them with ``more``), the plain
-    version and bincount on the input already masked, in turns, with
-    ``more`` (name, fn) timed beside them; the bound; max |err| against
-    plain."""
+def hist_entry(label: str, values, valid, size: int, more=(),
+               kind: str = "dense", forms=None) -> dict:
+    """Phase 6, K3 at one shape: the wrapper (with its form rule for input
+    of this ``kind``), each form (above 2^15 bins, or all of them with
+    ``more``; or ``forms``), the plain version and bincount on the input
+    already masked, in turns, with ``more`` (name, fn) timed beside them;
+    the bound; max |err| against plain."""
     import torch
 
     from kmer_spans_tpu_torch.ops import histogram as hist
 
     want = hist.histogram_plain(values, valid, size)
-    err = max_abs_err(hist.histogram(values, valid, size), want)
+    err = max_abs_err(hist.histogram(values, valid, size, kind), want)
     extra = ()
-    if size > hist.SLICE_BINS or more:
+    if forms is None and (size > hist.SLICE_BINS or more):
+        forms = hist.FORMS
+    if forms:
         extra = tuple(
             (f"{form}_ms", lambda form=form: hist.histogram_kernel(
                 values, valid, size, form))
-            for form in hist.FORMS)
+            for form in forms)
         for _, f in extra:
             err = max(err, max_abs_err(f(), want))
     extra += tuple(more)
@@ -487,12 +578,44 @@ def hist_entry(label: str, values, valid, size: int, more=()) -> dict:
     premasked = values[valid & (values >= 0) & (values < size)]
     n = values.numel()
     t = in_turns(f"histogram ({label}, {int(valid.sum()):,} of {n:,} "
-                 f"valid, {size} bins; form {hist.histogram_form(size)})",
-                 lambda: hist.histogram(values, valid, size),
+                 f"valid, {size} bins; form "
+                 f"{hist.histogram_form(size, kind, values.numel())})",
+                 lambda: hist.histogram(values, valid, size, kind),
                  lambda: hist.histogram_plain(values, valid, size),
                  lambda: torch.bincount(premasked, minlength=size), extra)
     return {**shape_entry(f"{label}, {size} bins", t,
                           bound(n * 5 + size * 4, n)), "err": err}
+
+
+def partitioned_passes(label: str, values, valid, size: int) -> None:
+    """Phase 6: the device time of each CUDA kernel of K3's partitioned
+    form (pass A, the scan, pass B, pass C) over three calls, from
+    torch.profiler; "not measured" where the profiler sees no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmer_spans_tpu_torch.ops import histogram as hist
+
+    def call():
+        return hist.histogram_kernel(values, valid, size, "partitioned")
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = (getattr(e, "device_time_total", 0)
+             or getattr(e, "cuda_time_total", 0))
+        for name in ("part_count", "part_scan", "part_scatter",
+                     "part_items"):
+            if name in e.key and t:
+                rows.append(f"{name} {t / e.count / 1e3:.4f}")
+    log(f"  partitioned passes ({label}, {size} bins), ms a call: "
+        + (", ".join(rows) if rows else "not measured"))
 
 
 def time_histogram(dev, nbases_dev) -> dict:
@@ -513,7 +636,8 @@ def time_histogram(dev, nbases_dev) -> dict:
     nbins = pm_params(k, None, n=n)[3]
     vals, valid = torch.clamp(v, max=nbins - 1), head & real
     del head, v, real
-    return hist_entry("k = 13 pm run lengths", vals, valid, nbins)
+    return hist_entry("k = 13 pm run lengths", vals, valid, nbins,
+                      kind="runs")
 
 
 def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
@@ -541,6 +665,7 @@ def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
         codes, kv = codes.reshape(-1), kv.reshape(-1)
         if k == 9:
             k3.append(hist_entry("k = 9 codes", codes, kv, 1 << 18))
+            partitioned_passes("k = 9 codes", codes, kv, 1 << 18)
             counts = count_spectrum(codes, kv, k)
             words = gather.class_table_from_mass(
                 _rank_mass(counts), counts.sum().to(torch.float32))
@@ -551,11 +676,12 @@ def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
             vmax, v2_ = sortscreen.VMAX, sortscreen.V2
             mask = head & real
             k3.append(hist_entry("k = 12 sort screen, runs by value",
-                                 torch.clamp(v, max=vmax - 1), mask, vmax))
+                                 torch.clamp(v, max=vmax - 1), mask, vmax,
+                                 kind="runs"))
             k3.append(hist_entry("k = 12 sort screen, runs by value and "
                                  "high byte",
                                  torch.clamp(v, max=v2_ - 1) * 256 + hb,
-                                 mask & (v < v2_), v2_ * 256))
+                                 mask & (v < v2_), v2_ * 256, kind="runs"))
             words = sortscreen.rank_ub_tables(
                 *sortscreen.rank_ub_histograms(v, hb, mask, vmax, v2_),
                 kv.sum(dtype=torch.int32), vmax, v2_)
@@ -584,8 +710,12 @@ def time_word_gather(dev, nbases_dev) -> tuple[dict, list]:
 def time_spectra(dev, nbases_dev) -> list:
     """Phase 6, K3 at the exact path's shapes on the genome's codes: the
     4^8 spectrum and the k = 8 scan histogram (the codes at scored
-    positions), and the 4^10 and 4^12 spectra (with the 4^9 one of
-    time_word_gather, the shapes that set the form rule)."""
+    positions), and the 4^10, 4^12, 4^14 and 4^15 spectra (with the 4^9
+    one of time_word_gather, the shapes that set the form rule; at 4^14
+    and 4^15 the global and partitioned forms only: the sliced form would
+    read the input 2^13 and 2^15 times)."""
+    import torch
+
     from kmer_spans_tpu_torch.ops.blocked import blocked_codes, blocked_scored
 
     n = nbases_dev.shape[0]
@@ -593,10 +723,16 @@ def time_spectra(dev, nbases_dev) -> list:
     b2, v2 = (nbases_dev & 3).reshape(nb, BLOCK), \
         (nbases_dev < 4).reshape(nb, BLOCK)
     out = []
-    for k in (8, 10, 12):
+    for k in (8, 10, 12, 14, 15):
         codes, kv = blocked_codes(b2, v2, k)
         out.append(hist_entry(f"k = {k} spectrum", codes.reshape(-1),
-                              kv.reshape(-1), 1 << (2 * k)))
+                              kv.reshape(-1), 1 << (2 * k),
+                              forms=("global", "partitioned") if k > 13
+                              else None))
+        if k == 12:
+            partitioned_passes("k = 12 spectrum", codes.reshape(-1),
+                               kv.reshape(-1), 1 << 24)
+        torch.cuda.empty_cache()
         if k == 8:
             scored = blocked_scored(v2, kv).reshape(-1)
             masked = codes.reshape(-1).masked_fill_(~kv.reshape(-1), 0)
@@ -682,7 +818,7 @@ def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
     out.append(hist_entry(
         "window counts, 16 dimers, w = 200, 2^22 starts", values, valid,
         size, more=(("mask_ms", lambda: wv[None, :].expand(
-            16, -1).contiguous()),)))
+            16, -1).contiguous()),), kind="repeats"))
     del b2, v2, codes, kv, v, cnt, wv, values, valid
     _, cat, seg = cohort(nbases)
     codes, kv, v2, seg2 = cohort_counts_inputs(
@@ -694,7 +830,8 @@ def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
     out.append(hist_entry(
         "cohort window counts, 154 scaffolds, 16 dimers, w = 200, 2^22 "
         "starts", values, valid, size,
-        more=(("mask_ms", lambda: wv[None, :].expand(16, -1).contiguous()),)))
+        more=(("mask_ms", lambda: wv[None, :].expand(16, -1).contiguous()),),
+        kind="repeats"))
     return out
 
 
@@ -1557,14 +1694,16 @@ def time_wide_shapes(dev, nbases_dev) -> tuple[list, dict]:
         f"{int((mask & (v == 1)).sum()):,} of them with v = 1 (one hot bin)")
     k3 = [hist_entry("wide k = 17 pm run lengths", torch.clamp(
         v, max=nbins - 1), mask, nbins, more=(("mask_ms",
-                                                lambda: head & real),))]
+                                                lambda: head & real),),
+        kind="repeats")]
     del head, real
     vmax, v2_ = sortscreen.VMAX, sortscreen.V2
     k3.append(hist_entry("wide k = 17 sort screen, runs by value",
-                         torch.clamp(v, max=vmax - 1), mask, vmax))
+                         torch.clamp(v, max=vmax - 1), mask, vmax,
+                         kind="repeats"))
     k3.append(hist_entry("wide k = 17 sort screen, runs by value and high "
                          "byte", torch.clamp(v, max=v2_ - 1) * 256 + hb,
-                         mask & (v < v2_), v2_ * 256))
+                         mask & (v < v2_), v2_ * 256, kind="repeats"))
     words = sortscreen.rank_ub_tables(
         *sortscreen.rank_ub_histograms(v, hb, mask, vmax, v2_), total, vmax,
         v2_)
@@ -1968,16 +2107,16 @@ MESH_SMALL = 1 << 24
 @contextlib.contextmanager
 def kernel_inputs():
     """While on, every K3 and K4 call through its module (histogram.
-    histogram, gather.word_gather) keeps its arguments; yields the list
-    of (name, args)."""
+    histogram, gather.word_gather) keeps its positional arguments; yields
+    the list of (name, args)."""
     from kmer_spans_tpu_torch.ops import gather, histogram
 
     seen, saved = [], (histogram.histogram, gather.word_gather)
 
     def keep(name, fn):
-        def call(*a):
+        def call(*a, **kw):
             seen.append((name, a))
-            return fn(*a)
+            return fn(*a, **kw)
         return call
 
     histogram.histogram = keep("histogram", saved[0])
@@ -2039,9 +2178,10 @@ def time_mesh_shapes(dev, grp, nbases_dev) -> tuple[list, list]:
     (_, count), (_, by_v), (_, by_vh), (_, k4) = seen
     del seen
     k3 = [hist_entry("k = 13 shard count, world 1, received codes", *count),
-          hist_entry("wide k = 17 scan, merged runs by value", *by_v),
+          hist_entry("wide k = 17 scan, merged runs by value", *by_v,
+                     kind="repeats"),
           hist_entry("wide k = 17 scan, merged runs by value and high byte",
-                     *by_vh)]
+                     *by_vh, kind="repeats")]
     words, entry, thr_q = k4
     if max_abs_err(gather.word_gather(words, entry, thr_q),
                    gather.word_gather_plain(words, entry, thr_q)):

@@ -43,9 +43,11 @@ _SIGNATURES = {
     "kst_screen_scan": (_P, ctypes.c_int64, ctypes.c_int32, _P,
                         ctypes.c_int32, ctypes.c_int32, _P, _P,
                         ctypes.c_int32, _P),
-    # values, valid, n, size, form, counts, num_sms, stream
+    # values, valid, n, size, form, counts, scratch, scratch_bytes, grid,
+    # item_len, num_sms, stream
     "kst_histogram": (_P, _P, ctypes.c_int64, ctypes.c_int32,
-                      ctypes.c_int32, _P, ctypes.c_int32, _P),
+                      ctypes.c_int32, _P, _P, ctypes.c_int64, ctypes.c_int32,
+                      ctypes.c_int32, ctypes.c_int32, _P),
     # entry, n, words, n_words, thr_q, out, num_sms, stream
     "kst_word_gather": (_P, ctypes.c_int64, _P, ctypes.c_int32, _P, _P,
                         ctypes.c_int32, _P),

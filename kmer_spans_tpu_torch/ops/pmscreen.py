@@ -325,7 +325,7 @@ def _screen(codes, kmer_valid, k: int, strategy: str, t_list: int,
     skey, spos, head, v, real = sorted_runs(codes, kmer_valid, k)
     total = kmer_valid.sum(dtype=torch.int32)
     vh = histogram.histogram(
-        torch.clamp(v, max=nbins - 1), head & real, nbins)
+        torch.clamp(v, max=nbins - 1), head & real, nbins, kind="runs")
     if strategy == "packed":
         pm_s, spos_s = _pm_packed(skey, spos, v, real, k)
     else:

@@ -39,14 +39,23 @@ VMAX = 1 << 16
 V2 = 1 << 8
 
 
-def rank_ub_histograms(v, hb, head_mask, vmax: int, v2: int):
+def runs_kind(n: int, k: int) -> str:
+    """What the run histograms of n k-mers count (histogram's ``kind``):
+    where 4^k >= n most k-mers occur once, so most runs have length 1
+    ("repeats": one bin takes almost every count); else "runs"."""
+    return "repeats" if n <= 4 ** k else "runs"
+
+
+def rank_ub_histograms(v, hb, head_mask, vmax: int, v2: int,
+                       kind: str = "runs"):
     """(vh_runs [vmax]: runs per count value; h2 [v2 * 256]: runs per
     (value, high byte)), int32, from K3.  head_mask: True once per real
-    run."""
+    run; kind: runs_kind of the k-mers."""
     vh_runs = histogram.histogram(torch.clamp(v, max=vmax - 1), head_mask,
-                                  vmax)
+                                  vmax, kind=kind)
     idx2 = torch.clamp(v, max=v2 - 1) * 256 + hb
-    h2 = histogram.histogram(idx2, head_mask & (v < v2), v2 * 256)
+    h2 = histogram.histogram(idx2, head_mask & (v < v2), v2 * 256,
+                             kind=kind)
     return vh_runs, h2
 
 
@@ -89,9 +98,10 @@ def rank_ub_gather(words, v, hb, thr_q, vmax: int, v2: int):
     return gather.word_gather(words, entry, thr_q)
 
 
-def _rank_ub_scores(v, hb, head, real, total, thr_q, vmax: int, v2: int):
+def _rank_ub_scores(v, hb, head, real, total, thr_q, vmax: int, v2: int,
+                    kind: str = "runs"):
     """s_int in the sorted order, from the runs (see module docstring)."""
-    vh_runs, h2 = rank_ub_histograms(v, hb, head & real, vmax, v2)
+    vh_runs, h2 = rank_ub_histograms(v, hb, head & real, vmax, v2, kind)
     words = rank_ub_tables(vh_runs, h2, total, vmax, v2)
     return rank_ub_gather(words, v, hb, thr_q, vmax, v2)
 
@@ -135,7 +145,8 @@ def _sorted_scores(codes, kmer_valid, k: int, thr_q, vmax: int, v2: int):
     total = kmer_valid.sum(dtype=torch.int32)
     hb = ((skey >> (2 * k - 8)) & 255).to(torch.int32)
     del skey
-    s_sorted = _rank_ub_scores(v, hb, head, real, total, thr_q, vmax, v2)
+    s_sorted = _rank_ub_scores(v, hb, head, real, total, thr_q, vmax, v2,
+                               runs_kind(codes.numel(), k))
     del head, v, real, hb
     s_int = torch.empty_like(s_sorted)
     s_int[spos] = s_sorted  # back to genome order (spos is a permutation)

@@ -150,7 +150,8 @@ def windowed_counts_device(
         values, valid, size = dist_values(
             cnt, wv, window, None if seg is None else seg[lo:hi], n_seqs)
         del cnt
-        h = histogram.histogram(values, valid, size)
+        # a window's count moves by at most one from its neighbour's
+        h = histogram.histogram(values, valid, size, "repeats")
         dist_flat = h if dist_flat is None else dist_flat + h
     if dist_flat is None:
         dist_flat = torch.zeros(S * T * W2, dtype=torch.int32, device=dev)

@@ -84,6 +84,97 @@ CLASS_MAX_K = 9
 FUSED_MAX_K = 8
 
 
+def _segment_check(w: np.ndarray, lo: int, ends: np.ndarray):
+    """Strictly sequential f64 sums of ``w`` from ``lo``, restarted at 0
+    after each of ``ends`` (sorted, the first >= lo): the first segment
+    whose sums do not stay above 0 before its end and reach <= 0 at it.
+
+    Returns (i, j): i is that segment's index into ``ends`` (len(ends)
+    when there is none); j is where its sums first reach <= 0, None when
+    they stay above 0 through its end.  ``np.add.accumulate`` along a row
+    adds left to right, so each segment's sums are the fold's own; the
+    segments go in rows of one power-of-two width, one accumulate each.
+    """
+    starts = np.concatenate(([lo], ends[:-1] + 1))
+    lens = ends - starts + 1
+    first = lens.copy()
+    width = 1
+    while True:
+        sel = np.nonzero((lens <= width) & (lens > width // 2))[0]
+        if sel.size:
+            col = np.arange(width)
+            inside = col < lens[sel, None]
+            idx = np.minimum(starts[sel, None] + col, w.shape[0] - 1)
+            acc = np.add.accumulate(np.where(inside, w[idx], 0.0), axis=1)
+            nonpos = (acc <= 0) & inside
+            first[sel] = np.where(nonpos.any(axis=1), nonpos.argmax(axis=1),
+                                  lens[sel])
+        if width >= lens.max():
+            break
+        width *= 2
+    bad = np.nonzero(first != lens - 1)[0]
+    if not bad.size:
+        return ends.size, None
+    i = int(bad[0])
+    return i, (int(starts[i] + first[i]) if first[i] < lens[i] else None)
+
+
+def tail_close(tail_s: np.ndarray, tail_sc: np.ndarray, x0_ub: float,
+               bound_zero: np.ndarray) -> int | None:
+    """The last position of the tail margin where the true S is provably 0:
+    its index, -1 for the position just before the margin, or None.
+
+    tail_s, tail_sc: the margin's true f64 scores and scored bits; x0_ub:
+    an upper bound of S entering the margin (the composed integer bound
+    over the screen's scale); bound_zero: True at the margin's block ends
+    whose composed integer bound is <= 0.
+
+    The vectorized bound ``max(P + x0_ub, P - min(0, min P))`` over
+    ``np.cumsum`` picks the closes, but its differences of prefixes can
+    round to 0 where the sequential fold stays marginally positive (or
+    the other way).  So the last close c is confirmed by the reference's
+    own fold, strictly sequential f64 sums from the last exact anchor at
+    or before c: an unscored reset or a zero of the integer bound (the
+    entry itself when x0_ub is 0; else the fold starts from x0_ub, which
+    bounds S from above and meets the true S at its first zero).  The
+    bound's closes after the anchor are taken as the fold's zeros and
+    checked all at once (``_segment_check``: the sums
+    ``spans.extract._first_nonpositive`` takes, for many excursions in
+    one accumulate, where one call an excursion walks a margin of short
+    excursions far slower); where one is not, the fold goes on past it,
+    and a zero the bound missed restarts the check.  The answer is c
+    where it holds, else the last zero the fold confirms, else the
+    anchor.
+    """
+    n = tail_s.shape[0]
+    P = np.cumsum(tail_s)
+    Mn = np.minimum.accumulate(np.minimum(P, 0.0))
+    closed = np.nonzero((np.maximum(P + x0_ub, P - Mn) <= 0) | ~tail_sc)[0]
+    c = int(closed[-1]) if closed.size else n - 1
+    exact = np.nonzero(~tail_sc[:c + 1] | bound_zero[:c + 1])[0]
+    a = int(exact[-1]) if exact.size else -1
+    if a == c:
+        return c
+    # w[j] is the tail's position a + j; w[0] the fold's state at a
+    init = x0_ub if a < 0 else 0.0
+    w = np.concatenate(([init], tail_s[a + 1:c + 1]))
+    last, lo = (None, 0) if init > 0 else (0, 1)
+    ends = closed[closed > a] - a
+    if ends.size == 0 or ends[-1] != c - a:
+        ends = np.append(ends, c - a)
+    while ends.size:
+        i, j = _segment_check(w, lo, ends)
+        if i == ends.size:
+            return a + int(ends[-1])
+        if i:
+            last, lo = int(ends[i - 1]), int(ends[i - 1]) + 1
+        if j is None:  # no zero at ends[i]: the fold goes on past it
+            ends = ends[i + 1:]
+        else:          # a zero before ends[i]
+            last, lo, ends = j, j + 1, ends[i:]
+    return None if last is None else a + last
+
+
 @dataclasses.dataclass
 class StreamResult:
     regions: list  # (seq_id, beg, end, score) global 1-based coords
@@ -686,26 +777,21 @@ class StreamingSpanPipeline:
         x_out = np.int64(block_last[-1]) if block_last[-1] > 0 else np.int64(0)
         if block_last[-1] > 0 and not is_last:
             # Locate the last position in the tail margin where true S = 0
-            # provably: replay the margin's true s-values with the initial
-            # state bounded by the composed integer bound entering the
-            # margin (block_last >= scale * S_true always),
-            #     S_ub(p) = max(x0_ub + P(p), P(p) - min(0, min P(<=p)))
-            # monotone in the init, so S_ub >= S_true and any S_ub <= 0 (or
-            # unscored reset) is a provable close.
+            # provably (tail_close), from the margin's true s-values and
+            # the composed integer bound entering the margin and at its
+            # block ends (block_last >= scale * S_true always).
             tail_s = pl["s_tail"]
             tail_sc = pl["sc_tail"]
             x0_ub = (float(max(int(block_last[nb - m - 1]), 0)) / scale
                      if nb > m else float(max(int(x_in), 0)) / scale)
-            P = np.cumsum(tail_s)
-            Mn = np.minimum.accumulate(np.minimum(P, 0.0))
-            S = np.maximum(P + x0_ub, P - Mn)
-            closed = (S <= 0) | ~tail_sc
-            zero = np.nonzero(closed)[0]
-            if not zero.size:
+            bound_zero = np.zeros(tail_s.shape[0], bool)
+            bound_zero[block - 1::block] = block_last[nb - m:] <= 0
+            close = tail_close(tail_s, tail_sc, x0_ub, bound_zero)
+            if close is None:
                 unresolved.append(
                     (ci, "open excursion exceeds tail margin"))
             else:
-                start_rel = int(zero[-1]) + 1
+                start_rel = close + 1
                 if start_rel < tail_s.shape[0]:
                     # else the edge position itself is provably closed: the
                     # chunk ends with true S = 0, nothing to hand off

@@ -54,6 +54,7 @@ from ..ops.sortscreen import (
     rank_ub_gather,
     rank_ub_histograms,
     rank_ub_tables,
+    runs_kind,
 )
 from ..stats.ranks import chain_ranks_from_mass, sparse_mass
 from .collectives import (
@@ -144,7 +145,8 @@ def make_wide_sharded_scan(grp: DataGroup, k: int, block: int = 512,
         g_tot = g_run.to(torch.int32)[mrun]
         # the global tables: each owner's run histograms (K3 x2), psum'd
         hb = ((mkey >> (2 * k - 8)) & 255).to(torch.int32)
-        vh_runs, h2 = rank_ub_histograms(g_tot, hb, mhead, vmax, v2)
+        vh_runs, h2 = rank_ub_histograms(g_tot, hb, mhead, vmax, v2,
+                                         runs_kind(n_local * W, k))
         words = rank_ub_tables(psum(grp, vh_runs), psum(grp, h2), total,
                                vmax, v2)
         # return each run's global count to the rank that sent it (past

@@ -209,10 +209,82 @@ def test_histogram_global_form_on_runs_of_equal_values(card, size):
     values[3_000_000:3_000_100] = -2                   # out of range
     x, m = to_tensor(values, card), to_tensor(valid, card)
     for args in ((x, m), (x[1:], m[1:]), (x[3:], m[:-3])):
-        got = histogram.histogram_kernel(*args, size, "global")
+        for form in ("global", "partitioned"):
+            got = histogram.histogram_kernel(*args, size, form)
+            torch.cuda.synchronize()
+            assert torch.equal(got, histogram_plain(*args, size)), form
+    assert histogram.histogram_form(size) == "partitioned"
+
+
+def _edge_values(rng, case, size, n):
+    """Every value in one bin; all in one part (2^15 bins), spread over
+    it; on part boundaries (2^15 j - 1, 2^15 j); half of them negative or
+    >= size (chip_smoke.py edge_values)."""
+    parts = -(-size // histogram.SLICE_BINS)
+    valid = rng.random(n) < 0.9
+    if case == "one bin":
+        values = np.full(n, size // 3)
+        valid[:] = True
+    elif case == "one part":
+        lo = parts // 2 * histogram.SLICE_BINS
+        values = rng.integers(lo, min(size, lo + histogram.SLICE_BINS), n)
+    elif case == "part edges":
+        j = np.arange(parts + 1) * histogram.SLICE_BINS
+        values = rng.choice(np.clip(np.concatenate([j - 1, j]), 0, size - 1),
+                            n)
+    else:
+        values = rng.integers(0, size, n)
+        out = rng.random(n) < 0.5
+        values[out] = rng.choice([-1, -(2 ** 31), size, 2 ** 31 - 1],
+                                 int(out.sum()))
+    return values.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("case", ["one bin", "one part", "part edges",
+                                  "out of range"])
+@pytest.mark.parametrize("size", [1 << 16, 1 << 18, 1 << 24])
+def test_histogram_edges_in_every_form(card, size, case):
+    rng = np.random.default_rng(size + len(case))
+    values, valid = _edge_values(rng, case, size, (1 << 20) + 3)
+    x, m = to_tensor(values, card), to_tensor(valid, card)
+    for args in ((x, m), (x[3:], m[:-3])):
+        want = histogram_plain(*args, size)
+        for form in histogram.FORMS:
+            got = histogram.histogram_kernel(*args, size, form)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), form
+
+
+@pytest.mark.parametrize("size", [1 << 26, 1 << 30])  # 4^13 and 4^15
+def test_histogram_partitioned_at_the_largest_sizes(card, size):
+    rng = np.random.default_rng(size % 1000)
+    n = 1 << 22
+    values = rng.integers(-3, size + 40, n).astype(np.int32)
+    values[77:77 + (1 << 16)] = size - 1
+    x, m = to_tensor(values, card), to_tensor(rng.random(n) < 0.8, card)
+    want = histogram_plain(x, m, size)
+    for form in ("partitioned", "global"):
+        assert torch.equal(histogram.histogram_kernel(x, m, size, form),
+                           want), form
+
+
+@pytest.mark.parametrize("size", [1 << 18, 1 << 24])
+def test_histogram_partitioned_walks_chunks(card, size, monkeypatch):
+    """An input larger than the scratch cap goes in chunks that add into
+    one output: a 4 MiB cap takes 2^22 positions in several."""
+    monkeypatch.setattr(histogram, "PARTITION_SCRATCH_CAP", 4 << 20)
+    rng = np.random.default_rng(size)
+    n = (1 << 22) + 5
+    plan = histogram.partition_plan(n, size, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    assert -(-n // plan.chunk) > 1
+    values = rng.integers(-3, size + 40, n).astype(np.int32)
+    values[9000:9000 + (1 << 17)] = size - 1
+    x, m = to_tensor(values, card), to_tensor(rng.random(n) < 0.8, card)
+    for args in ((x, m), (x[1:], m[1:]), (x[3:], m[:-3])):
+        got = histogram.histogram_kernel(*args, size, "partitioned")
         torch.cuda.synchronize()
         assert torch.equal(got, histogram_plain(*args, size))
-    assert histogram.histogram_form(size) == "global"
 
 
 def test_histogram_refuses_what_the_kernel_does_not_take(card):
@@ -417,7 +489,7 @@ def _window_k3_input(card, seed, T=16, n=1 << 20, window=200, S=None):
 @pytest.mark.parametrize("S", [None, 154])
 def test_histogram_at_the_window_shapes(card, S):
     """3328 bins of near-equal neighbours (sliced form), and the cohort's
-    S * 3232 bins (global form)."""
+    S * 3232 bins (the merged cluster form for repeats)."""
     values, valid, size = _window_k3_input(card, 3 if S is None else S, S=S)
     assert size == (3328 if S is None else -(-154 * 3232 // 128) * 128)
     want = histogram_plain(values, valid, size)
@@ -427,8 +499,8 @@ def test_histogram_at_the_window_shapes(card, S):
     for form in histogram.FORMS:
         assert torch.equal(histogram.histogram_kernel(values, valid, size,
                                                       form), want)
-    assert histogram.histogram_form(size) == (
-        "sliced" if S is None else "global")
+    assert histogram.histogram_form(size, "repeats") == (
+        "sliced" if S is None else "cluster_merged")
 
 
 def _window_genome(seed, n):

@@ -156,40 +156,150 @@ def test_histogram_rejects_bad_input():
         histogram.histogram(v, m[:32], 10)
 
 
-@pytest.mark.parametrize("size,cluster", [
-    (1, False), (256, False), (1 << 15, False),  # one CTA's counters
-    ((1 << 15) + 1, True), (1 << 16, True),      # two slices: cluster
-    ((1 << 16) + 1, False), (1 << 18, False),    # more: sliced
-    ((1 << 18) + 1, False), (1 << 20, False),
+@pytest.mark.parametrize("size,form", [
+    (1, "sliced"), (256, "sliced"), (1 << 15, "sliced"),  # one CTA's
+    ((1 << 15) + 1, "cluster"), (1 << 16, "cluster"),     # two slices
+    ((1 << 16) + 1, "partitioned"), (1 << 18, "partitioned"),
+    ((1 << 18) + 1, "partitioned"), (1 << 20, "partitioned"),
 ])
-def test_histogram_form_rule(size, cluster):
-    """The fixed rule measured on the card: the sort screen's run
-    histograms (65536 bins) take the cluster form, the 4^9 spectrum the
-    sliced form."""
-    assert histogram.cluster_form(size) is cluster
+def test_histogram_form_rule(size, form):
+    """The rule measured on the card for run lengths: the sort screen's
+    run histograms (65536 bins) take the cluster form, larger sizes the
+    partitioned form."""
+    assert histogram.histogram_form(size, "runs") == form
 
 
 def test_histogram_form_rule_at_the_main_paths_shapes():
     from kmer_spans_tpu_torch.ops import sortscreen
 
-    assert histogram.cluster_form(sortscreen.VMAX)
-    assert histogram.cluster_form(sortscreen.V2 * 256)
-    assert not histogram.cluster_form(1 << 18)  # the k = 9 count
-    assert not histogram.cluster_form(256)      # the pm value histogram
+    form = histogram.histogram_form
+    kind = sortscreen.runs_kind(1 << 28, 12)
+    assert kind == "runs" and sortscreen.runs_kind(1 << 28, 17) == "repeats"
+    assert form(sortscreen.VMAX, kind) == "cluster"
+    assert form(sortscreen.V2 * 256, kind) == "cluster"
+    assert form(sortscreen.VMAX, "repeats") == "cluster_merged"  # wide, k = 17
+    assert form(1 << 16) == "sliced"         # the 4^8 spectrum
+    assert form(1 << 18) == "partitioned"    # the k = 9 count
+    assert form(1 << 18, n=1 << 25) == "sliced"  # a k = 9 stream chunk
+    assert form(1 << 24, n=1 << 25) == "partitioned"  # a k = 12 one
+    assert form(1 << 24) == "partitioned"    # the 4^12 spectrum
+    assert form(1 << 26) == "partitioned"    # the k = 13 shard count
+    assert form(256, kind) == "sliced"       # the pm value histogram
+    assert form(3328, "repeats") == "sliced"  # a window chunk's counts
+    assert form(-(-154 * 3232 // 128) * 128, "repeats") == "cluster_merged"
 
 
 @pytest.mark.parametrize("size,form", [
-    (1, "sliced"), (1 << 15, "sliced"),             # one CTA's counters
-    ((1 << 15) + 1, "cluster"), (1 << 16, "cluster"),
-    ((1 << 16) + 1, "sliced"), (1 << 18, "sliced"),  # the 4^9 spectrum
-    ((1 << 18) + 1, "global"), (1 << 20, "global"),  # 4^10 and up
-    (1 << 24, "global"), (1 << 30, "global"),
+    (1, "sliced"), (1 << 15, "sliced"),                    # one CTA's
+    ((1 << 15) + 1, "sliced"), (1 << 16, "sliced"),        # dense: sliced
+    ((1 << 16) + 1, "partitioned"), (1 << 18, "partitioned"),
+    ((1 << 18) + 1, "partitioned"), (1 << 20, "partitioned"),
+    (1 << 24, "partitioned"), (1 << 30, "global"),         # 4^15: global
 ])
-def test_histogram_three_way_rule(size, form):
-    """Where K3 takes its global form: above the sizes of its
-    shared-memory forms' crossover, measured on the card."""
+def test_histogram_five_way_rule(size, form):
+    """Where K3 takes each form for dense input (the spectra): sliced to
+    two slices, partitioned to 4^14, global above, measured on the card."""
     assert histogram.histogram_form(size) == form
-    assert (form == "cluster") is histogram.cluster_form(size)
+    assert histogram.histogram_form(size, "dense") == form
+
+
+@pytest.mark.parametrize("kind,form", [("dense", "sliced"),
+                                       ("runs", "cluster"),
+                                       ("repeats", "cluster_merged")])
+def test_histogram_kind_choices_at_65536_bins(kind, form):
+    """At 65536 bins the best form depends on the input; the caller says
+    what it counts, and the counts do not depend on it."""
+    assert histogram.histogram_form(1 << 16, kind) == form
+    rng = np.random.default_rng(len(kind))
+    v = torch.from_numpy(rng.integers(-5, 1 << 16, 5000).astype(np.int32))
+    m = torch.from_numpy(rng.random(5000) < 0.7)
+    assert torch.equal(histogram.histogram(v, m, 1 << 16, kind),
+                       histogram_plain(v, m, 1 << 16))
+    with pytest.raises(ValueError, match="unknown kind"):
+        histogram.histogram(v, m, 1 << 16, "sparse")
+
+
+@pytest.mark.parametrize("size", [1, 1 << 15, (1 << 15) + 1, 1 << 16,
+                                  1 << 18, 154 * 3232, 1 << 24, 1 << 26,
+                                  1 << 30])
+def test_partition_plan_puts_every_bin_in_one_part(size):
+    """The parts of 2^15 bins tile [0, size): bin b lies in part b >> 15,
+    and in no other."""
+    plan = histogram.partition_plan(1 << 20, size, 132)
+    lo = np.arange(plan.parts, dtype=np.int64) * histogram.SLICE_BINS
+    hi = np.minimum(lo + histogram.SLICE_BINS, size)
+    assert lo[0] == 0 and hi[-1] == size
+    assert (hi > lo).all() and np.array_equal(lo[1:], hi[:-1])
+    bins = np.array([0, size // 3, size - 1], np.int64)
+    part = bins >> 15
+    assert ((lo[part] <= bins) & (bins < hi[part])).all()
+
+
+def _work_items(part_counts, item_len):
+    """Pass C's work items as csrc/histogram.cu part_items_kernel maps
+    them: (part, first, end) bucket ranges of at most item_len values,
+    ceil(count / item_len) a part, the parts one after another."""
+    items, first = [], 0
+    for p, c in enumerate(int(c) for c in part_counts):
+        for lo in range(first, first + c, item_len):
+            items.append((p, lo, min(lo + item_len, first + c)))
+        first += c
+    return items
+
+
+@pytest.mark.parametrize("case", ["random", "one part holds all",
+                                  "empty parts", "nothing counted"])
+def test_partition_work_items_cover_every_bucket(case):
+    """Pass C's items cover each part's bucket exactly once, hold at most
+    item_len values each, and stay within the plan's max_items; one part
+    holding all n values spreads over many items."""
+    rng = np.random.default_rng(len(case))
+    n, size = 1 << 22, 1 << 24
+    plan = histogram.partition_plan(n, size, 132)
+    counts = rng.multinomial(n, np.full(plan.parts, 1 / plan.parts))
+    if case == "one part holds all":
+        counts = np.zeros(plan.parts, np.int64)
+        counts[plan.parts // 3] = n
+    elif case == "empty parts":
+        counts[::3] = 0
+    elif case == "nothing counted":
+        counts[:] = 0
+    items = _work_items(counts, plan.item_len)
+    assert len(items) <= plan.max_items
+    covered = np.zeros(int(counts.sum()), np.int32)
+    first = np.concatenate([[0], np.cumsum(counts)])
+    for p, lo, hi in items:
+        assert first[p] <= lo < hi <= first[p + 1]
+        assert hi - lo <= plan.item_len
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if case == "one part holds all":
+        assert len(items) == -(-n // plan.item_len) >= 8
+
+
+@pytest.mark.parametrize("n,size", [
+    (1 << 28, 1 << 24),         # the 4^12 exact spectrum: one chunk
+    (1 << 29, 1 << 26),         # the k = 13 shard count: 2^29 slots
+    (1 << 29, 1 << 30),         # 4^15 bins
+    ((1 << 29) + 5, 1 << 26),
+    (1 << 25, 1 << 24),         # a stream chunk
+])
+def test_partition_plan_chunks_stay_under_the_cap(n, size, monkeypatch):
+    plan = histogram.partition_plan(n, size, 132)
+    pieces = -(-n // plan.chunk)
+    assert plan.scratch_bytes <= histogram.PARTITION_SCRATCH_CAP
+    assert plan.scratch_bytes >= 2 * plan.chunk  # a bucket slot a position
+    assert plan.chunk <= 1 << 30
+    if pieces > 1:
+        assert plan.chunk % 16 == 0  # every chunk starts aligned alike
+        assert (pieces - 1) * plan.chunk < n
+    assert pieces == (1 if 2 * n < histogram.PARTITION_SCRATCH_CAP - (
+        plan.scratch_bytes - 2 * plan.chunk) else 2)
+    monkeypatch.setattr(histogram, "PARTITION_SCRATCH_CAP", 64 << 20)
+    small = histogram.partition_plan(n, size, 132)
+    assert small.scratch_bytes <= 64 << 20 and small.chunk < plan.chunk
+    with pytest.raises(ValueError):
+        histogram.partition_plan(n, (1 << 30) + 1, 132)
 
 
 @pytest.mark.parametrize("bad", ["strided values", "strided valid",

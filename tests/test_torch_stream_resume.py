@@ -14,9 +14,14 @@ import pytest
 from kmer_spans_tpu.io import checkpoint as ref_checkpoint
 from kmer_spans_tpu.parallel.stream import StreamingSpanPipeline as JaxStream
 from kmer_spans_tpu_torch import api
+from kmer_spans_tpu_torch.encoding import kmer_to_code
 from kmer_spans_tpu_torch.io import checkpoint
-from kmer_spans_tpu_torch.oracle import count_spectrum
-from kmer_spans_tpu_torch.parallel.stream import StreamingSpanPipeline
+from kmer_spans_tpu_torch.models.scoring import WeightScoring
+from kmer_spans_tpu_torch.oracle import count_spectrum, find_regions
+from kmer_spans_tpu_torch.parallel.stream import (
+    StreamingSpanPipeline,
+    tail_close,
+)
 from kmer_spans_tpu_torch.utils.metrics import Metrics
 
 from test_torch_stream import chunks_of, nbases_of, oracle_regions, planted
@@ -172,3 +177,83 @@ def test_margin_beyond_the_chunk(golden):
     got = pipe.run(chunks_of(nb, 65536), 0.75, 100, 20.0)
     assert pipe.margin == 8 and got.unresolved == []
     assert got.regions == oracle_regions(golden, 12, 0.75, 100, 20.0)
+
+
+def _sequential_fold(s, sc, x0):
+    """The reference's S_i = max(S_{i-1} + s_i, 0) from S_{-1} = x0, one
+    position at a time, reset to 0 where unscored."""
+    out, S = [], x0
+    for v, scored in zip(s.tolist(), sc.tolist()):
+        S = max(S + v, 0.0) if scored else 0.0
+        out.append(S)
+    return np.array(out)
+
+
+def _vector_closes(s, sc, x0):
+    P = np.cumsum(s)
+    Mn = np.minimum.accumulate(np.minimum(P, 0.0))
+    return np.nonzero((np.maximum(P + x0, P - Mn) <= 0) | ~sc)[0]
+
+
+def test_tail_close_confirmed_by_the_sequential_fold():
+    """k = 1 under weights A -0.3, C 0.1, G 0.2, T -1.0: chunk 0's tail
+    margin opens T C G A and then G to the chunk edge and on.  The
+    vectorized bound closes at the A (-1 + 0.1 + 0.2 - 0.3 rounds below
+    -1), the sequential fold does not (0.1 + 0.2 - 0.3 = 5.55e-17 > 0):
+    the true excursion starts at the C.  The stream's regions equal the
+    oracle's, beg/end exact and f64 scores ==, and the close search picks
+    the T, where the sequential S is 0."""
+    chunk, block, margin = 8192, 512, 4
+    seq = list("T" * 2 * chunk)
+    tail = chunk - margin * block
+    seq[tail + 1:tail + 4] = "CGA"
+    seq[tail + 4:chunk + 300] = "G" * (chunk + 300 - tail - 4)
+    seq = "".join(seq)
+    weights = np.zeros(4)
+    for base, w in zip("ACGT", (-0.3, 0.1, 0.2, -1.0)):
+        weights[kmer_to_code(base)] = w
+    pipe = _pipe(k=1, chunk=chunk, block=block, margin=margin)
+    got = pipe.run(chunks_of(nbases_of(seq), chunk), 0.0, 30, 5.0,
+                   scoring=lambda counts, total: WeightScoring(weights))
+    want = find_regions(seq, 0, 30, 5.0, weights, 1, 0.0)
+    assert got.unresolved == []
+    assert len(want) == 1 and want[0][1] == tail + 2  # the C, 1-based
+    assert got.regions == [(i, b, e, float(s)) for i, b, e, s in want]
+
+    # the close search on the same tail: x0_ub = 0 (T before the margin)
+    s = weights[[kmer_to_code(b) for b in seq[tail:chunk]]]
+    sc = np.ones(s.shape[0], bool)
+    seq_S = _sequential_fold(s, sc, 0.0)
+    assert _vector_closes(s, sc, 0.0)[-1] == 3 and seq_S[3] > 0
+    close = tail_close(s, sc, 0.0, np.zeros(s.shape[0], bool))
+    assert close == 0 and seq_S[close] == 0.0
+    assert (seq_S[close + 1:] > 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tail_close_equals_the_sequential_fold(seed):
+    """Random tails of 0.1-step scores, unscored resets, zeros of the
+    integer bound and an entry bound of 0 or above: the close search
+    returns the last position at or before the vectorized bound's last
+    close where the sequential fold (from the entry bound, reset at the
+    anchors) is 0, and some of them move off the bound's choice."""
+    rng = np.random.default_rng(seed)
+    moved = 0
+    for _ in range(400):
+        n = int(rng.integers(1, 300))
+        s = rng.choice([0.1, 0.2, -0.3, 0.3, -0.1, -0.2, 0.7, -1.0], n)
+        sc = rng.random(n) > 0.01
+        s[~sc] = 0.0
+        x0 = float(rng.choice([0.0, 0.3, 2.0]))
+        bz = np.zeros(n, bool)
+        if rng.random() < 0.3:
+            bz[rng.integers(0, n, 2)] = True
+        closes = _vector_closes(s, sc, x0)
+        c = int(closes[-1]) if closes.size else n - 1
+        S = _sequential_fold(s, sc & ~bz, x0)[:c + 1]
+        zeros = np.nonzero(S == 0.0)[0]
+        want = int(zeros[-1]) if zeros.size else (-1 if x0 == 0 else None)
+        got = tail_close(s, sc, x0, bz)
+        assert got == want
+        moved += closes.size > 0 and got != c
+    assert moved > 0
