@@ -145,7 +145,13 @@ Run from the repository root.  Phases, each of which raises on failure:
      the dense span scan (ops/scan.py span_scan) on the card over the
      k = 8 exact step's 2^28 f32 scores, equal to span_scan_blocked and,
      on the first 2^20 positions, to a sequential f64 loop within
-     rtol = atol = 2e-4.  It adds nothing to the kernels' launches.
+     rtol = atol = 2e-4.  It adds nothing to the kernels' launches;
+ 16. the host span replay (spans/extract.py) on tied decimal tables: the
+     genome's first 2^22 bases through api.kmer_regions at k = 2 and 8,
+     min_width 20, min_score 2.0, tables drawn from --seed in steps of
+     0.1 from -0.55 to 0.45, with the kernels and with the plain versions
+     (equal), each equal to backend="native" (n, scan counts, regions
+     with f64 ==); region counts, host finish and walls logged.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without a CUDA device the
@@ -2648,6 +2654,71 @@ def cpu_backends_phase(dev, nbases: np.ndarray, ph9: dict,
                     for a, (z, e, m) in seq_err.items()))
 
 
+def tied_phase(dev, nbases: np.ndarray, seed: int, card: str) -> int:
+    """Phase 16: the host span replay (spans/extract.py) on tied decimal
+    tables.  The genome's first 2^22 bases through api.kmer_regions at
+    k = 2 and k = 8, min_width 20, min_score 2.0, each table drawn from a
+    seeded rng in steps of 0.1 from -0.55 to 0.45 (whose sums return to 0
+    exactly in the reals, and in f64 to 0 or a few ulps above it; at
+    seed 0 the k = 2 table is tests/test_torch_extract.py's), with
+    the kernels and again with the plain versions on the card, the two
+    equal, and equal to backend="native" (the host library's sequential
+    C loop): n, scan counts and regions with f64 ==.  Logs the region
+    counts, the host finish and the walls.  Returns K3's launches in the
+    kernels' runs."""
+    from kmer_spans_tpu_torch import api
+    from kmer_spans_tpu_torch.encoding import PackedSeq
+    from kmer_spans_tpu_torch.ops import histogram
+
+    head = nbases[:1 << 22]
+    seq = PackedSeq(bases=head & 3, valid=head < 4)
+    rng = np.random.default_rng(seed + 7)
+    # the bases that tests/test_torch_extract.py draws first: at seed 0
+    # the k = 2 table is that test's (mean 0, a walk with no drift)
+    rng.integers(0, 4, size=1 << 20)
+    cpu = cpu_model()
+    launches = 0
+    for k in (2, 8):
+        table = np.round(rng.choice(np.arange(-5, 6), size=4 ** k) / 10.0
+                         - 0.05, 2)
+        label = f"kmer_regions k={k} tied table"
+        runs = []
+        for plain in (False, True):
+            zero_launch_counts()
+            with plain_versions(plain), api_stages() as st:
+                t0 = time.perf_counter()
+                res = api.kmer_regions(seq, k, table, 20, 2.0, device=dev)
+                wall = time.perf_counter() - t0
+            if not plain:
+                if histogram.histogram_launches < 1:
+                    raise AssertionError(f"{label}: the exact path skipped "
+                                         "the histogram")
+                launches += histogram.histogram_launches
+            log(f"  {label}, {'plain versions' if plain else 'kernels'}: "
+                f"wall {wall:.3f} s; device step {st['device'] * 1e3:.1f} "
+                f"ms, host finish {st['finish'] * 1e3:.1f} ms (of which "
+                f"{st['batches']} batched pulls {st['batch_s'] * 1e3:.1f} "
+                f"ms) [{card}; host {cpu}]")
+            runs.append(res)
+        t0 = time.perf_counter()
+        want = api.kmer_regions(seq, k, table, 20, 2.0, backend="native")
+        wall = time.perf_counter() - t0
+        for f in ("n", "counts", "regions"):
+            if not np.array_equal(getattr(runs[0], f), getattr(runs[1], f)):
+                raise AssertionError(f"{label}: {f} differs from the plain "
+                                     "run")
+            if not np.array_equal(getattr(runs[0], f), getattr(want, f)):
+                raise AssertionError(f"{label}: {f} differs from "
+                                     "backend='native'")
+        if len(want.regions) < 1:
+            raise AssertionError(f"{label}: no region")
+        log(f"  {label}: {len(want.regions)} regions, scan counts sum "
+            f"{int(want.counts.sum()):,}, equal to the plain run and to "
+            f"backend='native' (f64 scores ==; native wall {wall:.3f} s "
+            f"[{cpu}])")
+    return launches
+
+
 def world_one(dev):
     """A process group of this process alone on the card: NCCL, a file
     store in a temporary directory of the build directory.  Returns its
@@ -2813,6 +2884,9 @@ def main(argv=None) -> int:
     phase("phase 15: the CPU backends beside the card")
     cpu_backends_phase(dev, nbases, exact_results, card)
     del exact_results
+
+    phase("phase 16: the host span replay on tied decimal tables")
+    launches["histogram"] += tied_phase(dev, nbases, args.seed, card)
 
     phase(None)
     close_group()

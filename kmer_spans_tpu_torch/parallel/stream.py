@@ -71,7 +71,8 @@ from ..ops.rowgather import (
     row_screen_scores_affine,
 )
 from ..ops.screen_scan import MAX_BLOCK
-from ..spans.extract import _first_nonpositive, extract_spans
+from ..spans.extract import _first_nonpositive, _segment_check, \
+    extract_spans
 from ..spans.finish import compose_summaries_exact, host_rank_chain, \
     rebuild_codes
 from ..spans.pipeline import _top_blocks, aug_words, pack_candidates
@@ -82,41 +83,6 @@ from ..utils import native
 CLASS_MAX_K = 9
 #: K2's range (16-bit codes in the aug words)
 FUSED_MAX_K = 8
-
-
-def _segment_check(w: np.ndarray, lo: int, ends: np.ndarray):
-    """Strictly sequential f64 sums of ``w`` from ``lo``, restarted at 0
-    after each of ``ends`` (sorted, the first >= lo): the first segment
-    whose sums do not stay above 0 before its end and reach <= 0 at it.
-
-    Returns (i, j): i is that segment's index into ``ends`` (len(ends)
-    when there is none); j is where its sums first reach <= 0, None when
-    they stay above 0 through its end.  ``np.add.accumulate`` along a row
-    adds left to right, so each segment's sums are the fold's own; the
-    segments go in rows of one power-of-two width, one accumulate each.
-    """
-    starts = np.concatenate(([lo], ends[:-1] + 1))
-    lens = ends - starts + 1
-    first = lens.copy()
-    width = 1
-    while True:
-        sel = np.nonzero((lens <= width) & (lens > width // 2))[0]
-        if sel.size:
-            col = np.arange(width)
-            inside = col < lens[sel, None]
-            idx = np.minimum(starts[sel, None] + col, w.shape[0] - 1)
-            acc = np.add.accumulate(np.where(inside, w[idx], 0.0), axis=1)
-            nonpos = (acc <= 0) & inside
-            first[sel] = np.where(nonpos.any(axis=1), nonpos.argmax(axis=1),
-                                  lens[sel])
-        if width >= lens.max():
-            break
-        width *= 2
-    bad = np.nonzero(first != lens - 1)[0]
-    if not bad.size:
-        return ends.size, None
-    i = int(bad[0])
-    return i, (int(starts[i] + first[i]) if first[i] < lens[i] else None)
 
 
 def tail_close(tail_s: np.ndarray, tail_sc: np.ndarray, x0_ub: float,
@@ -138,10 +104,11 @@ def tail_close(tail_s: np.ndarray, tail_sc: np.ndarray, x0_ub: float,
     entry itself when x0_ub is 0; else the fold starts from x0_ub, which
     bounds S from above and meets the true S at its first zero).  The
     bound's closes after the anchor are taken as the fold's zeros and
-    checked all at once (``_segment_check``: the sums
-    ``spans.extract._first_nonpositive`` takes, for many excursions in
-    one accumulate, where one call an excursion walks a margin of short
-    excursions far slower); where one is not, the fold goes on past it,
+    checked all at once (``spans.extract._segment_check``, on the sums
+    with which ``extract_spans`` confirms its screen's zeros: those
+    ``_first_nonpositive`` takes, for many excursions in one accumulate,
+    where one call an excursion walks a margin of short excursions far
+    slower); where one is not, the fold goes on past it,
     and a zero the bound missed restarts the check.  The answer is c
     where it holds, else the last zero the fold confirms, else the
     anchor.

@@ -1,0 +1,228 @@
+"""The port's host span replay (kmer_spans_tpu_torch/spans/extract.py)
+on scores that tie: decimal tables, whose sums return to 0 exactly in the
+reals, and in f64 to 0 or to a few ulps above it.
+
+The vectorized screen's zeros are differences of prefix sums; they round
+otherwise than the reference's clamped fold S_i = max(S_{i-1} + s_i, 0),
+added one position at a time.  The replay confirms them with the fold's
+own sums, so its regions (beg/end exact, f64 scores ==) and scan counts
+(rescans included) equal a sequential loop over the same scores, the
+host oracle (backend="host") and the host library (backend="native").
+The JAX package's device path keeps the screen's rounding (its
+spans/extract.py) and departs from the oracle on two of these inputs."""
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from kmer_spans_tpu import api as ref_api
+from kmer_spans_tpu_torch import api
+from kmer_spans_tpu_torch.parallel import stream
+from kmer_spans_tpu_torch.spans import extract
+from kmer_spans_tpu_torch.utils import native
+
+#: A: 0.1 + 0.2 - 0.3 stays 5.55e-17 above 0 in the fold after the -1;
+#: the screen's prefix difference is 0 there
+SCORES_A = np.array([-1.0, 0.1, 0.2, -0.3] + [0.5] * 200)
+#: B: the fold reaches exactly 0 at the -0.4; the screen stays above it
+SCORES_B = np.array([-0.1, 0.4, -0.4, 0.4, 0.4] + [0.4] * 300)
+
+#: the same two through kmer_regions at k = 1 (the table in the 2-bit
+#: order A C T G): (sequences, table, the oracle's regions)
+API_A = (["A" * 50 + "TCGA" + "CG" * 300 + "T" * 50],
+         [-0.3, 0.1, -1.0, 0.2], [(0, 52, 654, 90.00000000000021)])
+API_B = (["ACTCC" + "C" * 300 + "T"], [-0.1, 0.4, -0.4, 0.3],
+         [(0, 4, 305, 120.80000000000064)])
+
+
+def _fold_spans(s, pos_offset, min_width, min_score, visits=None):
+    """The reference's scan over precomputed scores, one position at a
+    time (oracle._scan_segment_once's loop): clamp at 0, first argmax,
+    emit and jump back to max_pos + 1 on a close or at the end.  Returns
+    the regions; ``visits`` (len(s)) counts each position's scans."""
+    s = np.asarray(s, np.float64).tolist()
+    n = len(s)
+    regions = []
+    start = 0
+    while True:
+        score = last = max_score = 0.0
+        beg = max_pos = 0
+        jump = None
+        j = start
+        while j < n:
+            if visits is not None:
+                visits[j] += 1
+            score = last + s[j]
+            if score < 0.0:
+                score = 0.0
+            pos1 = pos_offset + j
+            if last == 0.0 and score > 0.0:
+                beg = max_pos = pos1
+                max_score = score
+            if score == 0.0 and last > 0.0:
+                if max_pos - beg >= min_width and max_score >= min_score:
+                    regions.append((beg, max_pos, max_score))
+                    jump = max_pos + 1 - pos_offset
+                    break
+                max_score = 0.0
+                max_pos = pos1
+            if score > max_score:
+                max_score = score
+                max_pos = pos1
+            last = score
+            j += 1
+        if jump is None and score > 0.0 and max_pos - beg >= min_width \
+                and max_score >= min_score:
+            regions.append((beg, max_pos, max_score))
+            jump = max_pos + 1 - pos_offset
+        if jump is None:
+            return regions
+        start = jump
+
+
+def _fold_extract(s, scored, min_width, min_score):
+    """_fold_spans over each scored stretch: extract_spans's regions and
+    per-position scan counts."""
+    visits = np.zeros(s.shape[0], np.int64)
+    regions = []
+    edges = np.flatnonzero(np.diff(np.concatenate(([0], scored, [0]))))
+    for a, b in zip(edges[0::2], edges[1::2]):
+        regions += [(0, beg, end, sc) for beg, end, sc in _fold_spans(
+            s[a:b], a + 1, min_width, min_score, visits[a:b])]
+    return regions, visits
+
+
+def _regions(res):
+    return [(int(r["seq_id"]), int(r["beg"]), int(r["end"]),
+             float(r["score"])) for r in res.regions]
+
+
+@pytest.mark.parametrize("scores, min_width, min_score, want", [
+    (SCORES_A, 100, 20.0, [(2, 204, 100.0)]),
+    (SCORES_B, 100, 20.0, [(4, 305, 120.80000000000064)]),
+    (np.array([-0.1, 0.4, -0.4, 0.4, -0.4]), 0, 0.0,
+     [(2, 2, 0.4), (4, 4, 0.4)]),
+], ids=["a_region_moves", "b_region_lost", "c_walk_to_the_end"])
+def test_tied_scores_equal_the_sequential_fold(scores, min_width, min_score,
+                                               want):
+    """A: the screen cuts one excursion in two at a zero the fold does
+    not reach (the unrepaired replay started at 5).  B: the screen joins
+    two at a zero the fold reaches; the first fails, the second passes
+    (the unrepaired replay skipped it).  C: the fold reaches 0 at 2 and
+    at the last position, where the screen stays above 0 throughout: the
+    walk that confirms them ends with the segment."""
+    v_got = np.zeros(scores.shape[0] + 1, np.int64)
+    got = extract.extract_segment_spans(scores, 1, min_width, min_score,
+                                        visits=v_got)
+    v_want = np.zeros(scores.shape[0], np.int64)
+    assert got == _fold_spans(scores, 1, min_width, min_score, v_want) \
+        == want
+    assert np.array_equal(np.cumsum(v_got)[:-1], v_want)
+
+
+@pytest.mark.parametrize("case", [API_A, API_B], ids=["a", "b"])
+def test_api_equals_host_and_native_on_tied_tables(case):
+    """kmer_regions on the CPU (the device path's plain versions, then
+    the host replay) equals the oracle (backend="host") and the host
+    library (backend="native"): regions with f64 ==, scan counts.  The
+    JAX package's device path gives beg 55 on A and no region on B."""
+    seqs, table, want = case
+    got = api.kmer_regions(seqs, 1, table, 100, 20.0, device="cpu")
+    backends = ["host"] + (["native"] if native.available() else [])
+    for backend in backends:
+        other = api.kmer_regions(seqs, 1, table, 100, 20.0, backend=backend)
+        assert _regions(got) == _regions(other) == want
+        assert np.array_equal(got.counts, other.counts)
+    ref = _regions(ref_api.kmer_regions(seqs, 1, table, 100, 20.0))
+    assert ref == ([(0, 55, 654, 90.00000000000021)] if case is API_A
+                   else [])
+
+
+def test_seeded_genome_k2_equals_native():
+    """A 2^20-base genome and a 16-entry table of steps of 0.1 (-0.55 to
+    0.45): 780 regions and 1,988,652 scanned k-mers, equal to the host
+    library (the unrepaired replay gave 725 regions and 1,970,171)."""
+    rng = np.random.default_rng(7)
+    seq = "".join(rng.choice(list("ACGT"), size=1 << 20))
+    w = np.round(rng.choice(np.arange(-5, 6), size=16) / 10.0 - 0.05, 2)
+    got = api.kmer_regions([seq], 2, w, 20, 2.0, device="cpu")
+    assert len(got.regions) == 780
+    assert int(got.counts.sum()) == 1_988_652
+    if native.available():
+        want = api.kmer_regions([seq], 2, w, 20, 2.0, backend="native")
+        assert _regions(got) == _regions(want)
+        assert np.array_equal(got.counts, want.counts)
+
+
+@st.composite
+def tied_scores(draw):
+    """Scores over a short decimal alphabet (4-16 multiples of 0.05 or
+    0.1, both signs, maybe -inf), with long planted runs of a short
+    pattern, some of whose sums are exactly 0 in the reals."""
+    step = draw(st.sampled_from([0.05, 0.1]))
+    size = draw(st.integers(4, 16))
+    ints = draw(st.lists(st.integers(-20, 20), min_size=size,
+                         max_size=size))
+    ints[0] = abs(ints[0]) or 1
+    ints[1] = -abs(ints[1]) or -1
+    alphabet = np.round(np.array(ints) * step, 2)
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    n = draw(st.integers(1, 500))
+    s = rng.choice(alphabet, n)
+    for _ in range(draw(st.integers(0, 3))):
+        a, b = rng.choice(alphabet, 2)
+        pattern = [a, b, round(-(a + b), 2)][: draw(st.integers(1, 3))]
+        lo = int(rng.integers(0, n))
+        hi = min(n, lo + draw(st.integers(20, 300)))
+        s[lo:hi] = np.resize(pattern, hi - lo)
+    if draw(st.booleans()):
+        s[rng.random(n) < 0.01] = -np.inf
+    scored = rng.random(n) > 0.02
+    s = np.where(scored, s, 0.0)
+    return s, scored
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(case=tied_scores(), min_width=st.integers(0, 30),
+       min_score=st.sampled_from([0.0, 0.5, 1.0, 2.0, 5.0]))
+def test_extract_spans_equals_the_sequential_fold(case, min_width,
+                                                   min_score):
+    s, scored = case
+    visits = np.zeros(s.shape[0] + 1, np.int64)
+    got = extract.extract_spans(s, scored, min_width, min_score,
+                                visits_full=visits)
+    want, want_visits = _fold_extract(s, scored, min_width, min_score)
+    assert got == want
+    assert np.array_equal(np.cumsum(visits)[:-1], want_visits)
+
+
+@pytest.mark.parametrize("block_elems", [1 << 20, 64])
+def test_segment_sums_equal_sequential_sums(monkeypatch, block_elems):
+    """Each stretch summed from 0, left to right: the first sum <= 0 and
+    whether a sum before it reaches the bar, in one block or in blocks of
+    one power-of-two width (at most 64 elements a block)."""
+    monkeypatch.setattr(extract, "_BLOCK_ELEMS", block_elems)
+    rng = np.random.default_rng(3)
+    w = rng.choice(np.round(np.arange(-6, 6) / 10.0 + 0.05, 2), 5000)
+    w[rng.integers(0, 5000, 5)] = -np.inf
+    cuts = np.sort(rng.choice(np.arange(1, 5000), 700, replace=False))
+    starts = np.concatenate(([0], cuts))
+    lens = np.diff(np.concatenate((starts, [5000])))
+    first, reached = extract._segment_sums(w, starts, lens, reach=0.6)
+    for i, (a, ln) in enumerate(zip(starts, lens)):
+        acc, total = [], 0.0
+        for v in w[a:a + ln]:
+            total += v
+            acc.append(total)
+        acc = np.array(acc)
+        nonpos = np.flatnonzero(acc <= 0)
+        f = int(nonpos[0]) if nonpos.size else int(ln)
+        assert first[i] == f
+        assert reached[i] == bool((acc[:f] >= 0.6).any())
+
+
+def test_stream_shares_the_segment_check():
+    """The stream's tail close confirms its closes with the replay's own
+    sums."""
+    assert stream._segment_check is extract._segment_check
