@@ -101,7 +101,7 @@ from .spans.pipeline import (
 from .spans.pm_finish import finish_pm_spans, unpack_pm_outputs
 from .spans.pm_pipeline import make_pm_span_pipeline, make_wide_pm_pipeline
 from .stats.ranks import SparseRanks, cumulative_mass, spectrum_median_freq
-from .utils import native
+from .utils import metrics, native
 
 #: device reruns after a candidate- or list-capacity overflow, and
 #: lr_regions' pull batches beyond the first of each sequence
@@ -263,6 +263,12 @@ def _call_regions(
     candidates replayed on the host; under "host" or "native", the
     sequential caller per sequence.
 
+    Spans (utils/metrics.py) on the device path: ``regions.sequence`` a
+    sequence, and inside it ``regions.stage`` (staging and the copy to
+    the device), ``regions.step`` (the step's launches; on CUDA its
+    ``device_ms`` from an event pair), ``regions.outputs`` (the copy of
+    its outputs to the host, which waits for the step) and the finish.
+
     Returns (regions, scan counts int64 [4^k] or None).
     """
     if backend != "auto":
@@ -277,12 +283,25 @@ def _call_regions(
     for i, p in enumerate(packed):
         if p.n < k:
             continue
+        seq = metrics.begin("regions.sequence", seq_id=i, bases=p.n) \
+            if metrics.enabled else None
         npad = max(bucket_size(p.n), block)
         fn = make_weight_span_pipeline(
             k, block=block, cand_blocks=min(128, npad // block),
             with_scan_counts=want_scan_counts, device=device)
+        sp = metrics.begin("regions.stage") if seq is not None else None
         nbases = torch.from_numpy(staged_nbases(p, npad)).to(device)
-        out = {key: v.cpu().numpy() for key, v in fn(nbases, w_q).items()}
+        if sp is not None:
+            metrics.end(sp)
+            sp = metrics.begin("regions.step", device=nbases.device)
+        step = fn(nbases, w_q)
+        if sp is not None:
+            metrics.end(sp)
+            sp = metrics.begin("regions.outputs")
+        out = {key: v.cpu().numpy() for key, v in step.items()}
+        del step
+        if sp is not None:
+            metrics.end(sp)
         seq_scan = np.zeros(size, np.int64) if want_scan_counts else None
         res = finish_weight_spans(
             out, npad, model.weights, model.threshold, min_width, min_score,
@@ -294,6 +313,8 @@ def _call_regions(
         if want_scan_counts:
             scan_counts += seq_scan
             scan_counts += out["scan_hist"].astype(np.int64)
+        if seq is not None:
+            metrics.end(seq)
     return all_regions, scan_counts
 
 
@@ -323,6 +344,7 @@ def _host_regions(packed, k, model, min_width, min_score, backend,
     return all_regions, scan_counts
 
 
+@metrics.traced("api.kmer_regions")
 def kmer_regions(
     seqs, k: int, kmer_scores, min_width: int, min_score: float,
     device="cuda", backend: str = "auto",
@@ -349,6 +371,7 @@ def kmer_regions(
     )
 
 
+@metrics.traced("api.kmer_low_comp_regions")
 def kmer_low_comp_regions(
     seqs, k: int, min_w: int, min_score: float, thr: float = 0.75,
     mode: str = "exact", device="cuda", backend: str = "auto",
@@ -391,6 +414,7 @@ def kmer_low_comp_regions(
     )
 
 
+@metrics.traced("api.kmer_spans")
 def kmer_spans(
     seqs,
     k: int,

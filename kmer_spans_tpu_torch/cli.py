@@ -105,7 +105,21 @@ def cmd_spans(args):
 
 
 def cmd_stream(args):
-    """Span-call a large FASTA through the chunked streaming pipeline."""
+    """Span-call a large FASTA through the chunked streaming pipeline;
+    with --metrics, inside the span recorder, whose span counts, self
+    seconds and counters join the phases' JSON on stderr."""
+    from .utils import metrics
+
+    if not args.metrics:
+        _stream(args)
+        return
+    with metrics.tracing() as rec:
+        phases = _stream(args)
+    print(phases.dump(rec), file=sys.stderr)
+
+
+def _stream(args):
+    """cmd_stream's work; returns its phases' Metrics."""
     from .encoding import pack
     from .io.fasta import read_fasta
     from .parallel.stream import StreamingSpanPipeline
@@ -171,8 +185,7 @@ def cmd_stream(args):
         total_unresolved += len(res.unresolved)
     print(f"# {total_regions} regions, {total} k-mers, "
           f"{total_unresolved} unresolved windows", file=sys.stderr)
-    if args.metrics:
-        print(metrics.dump(), file=sys.stderr)
+    return metrics
 
 
 def cmd_wide(args):

@@ -35,6 +35,9 @@ _MIN_BUCKET = 4096
 #: positions a tile of the blocked codes (every bucket is a multiple of
 #: this or smaller than it)
 _COUNT_BLOCK = 8192
+#: bytes staged_nbases has returned, for every caller (the count and the
+#: span step of each sequence)
+staged_bytes = 0
 
 
 def bucket_size(n: int) -> int:
@@ -47,6 +50,8 @@ def bucket_size(n: int) -> int:
 
 def staged_nbases(p: PackedSeq, npad: int) -> np.ndarray:
     """uint8 [npad]: the sequence's 2-bit bases with N as 4, N-padded."""
+    global staged_bytes
+    staged_bytes += npad
     arr = np.full(npad, 4, np.uint8)
     arr[: p.n] = np.where(p.valid, p.bases, 4)
     return arr

@@ -35,11 +35,28 @@ Three layers:
     the C loop.  An emission's rescan [m+1, z] is a fresh range: the
     rescan's fold starts at 0 <= S_m, stays at or below the first pass's
     (f64 addition is monotone) and so closes by the first pass's zero z.
+
+Spans (utils/metrics.py): ``extract.screen`` the screen and the
+stretches' sums of each range, ``extract.confirm`` its walks,
+``extract.replay`` each candidate's replay.  The counters below count
+whether the recorder is on or off.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils import metrics
+
+#: ranges handed to ``_candidates``: each segment's first pass and each
+#: emission's rescan
+replay_ranges = 0
+#: the confirmation's sequential walks (``_first_nonpositive`` calls from
+#: a stretch the screen's sums did not confirm)
+confirm_walks = 0
+#: candidate excursions replayed, and those of them that emitted a region
+replays = 0
+replay_emits = 0
 
 _CHUNK = 4096
 #: the first chunk of a replay, doubled up to _CHUNK: most excursions
@@ -182,9 +199,11 @@ def _candidates(s: np.ndarray, min_width: int, min_score: float) -> list:
     zero when every stretch before it holds, until the fold reaches 0 on
     a screened zero: the stretches after that hold as screened.
     """
+    global confirm_walks
     n = s.shape[0]
     if n <= min_width:  # no excursion here is long enough
         return []
+    sp = metrics.begin("extract.screen") if metrics.enabled else None
     zero = _screen_zeros(s)
     # where the screen turns positive and back: the runs' starts and
     # closing zeros, by turns
@@ -205,13 +224,18 @@ def _candidates(s: np.ndarray, min_width: int, min_score: float) -> list:
     walk = run_start[~keep]
     if lone.size:
         walk = np.union1d(lone[(lone == 0) | zero[lone - 1]], walk)
+    if sp is not None:
+        metrics.end(sp)
+        sp = metrics.begin("extract.confirm") if walk.size else None
     walked_u, lo, hi = [], [], []
     walked = -1  # the walks have fixed the fold up to here
+    walks = 0
     for u in walk.tolist():
         if u <= walked:
             continue
         lo.append(u)
         while True:
+            walks += 1
             S_vals, zw = _first_nonpositive(s, u)
             zz = n if zw is None else zw
             if zz - 1 - u >= min_width and zz > u and \
@@ -222,15 +246,21 @@ def _candidates(s: np.ndarray, min_width: int, min_score: float) -> list:
                 break
             u = zw + 1
         hi.append(walked)
+    confirm_walks += walks
     if lo:  # the runs a walk passed over are its own
         c = np.searchsorted(np.asarray(lo), run_start, side="right") - 1
         keep &= (c < 0) | (run_start > np.asarray(hi)[c])
+    if sp is not None:
+        metrics.end(sp)
     # the runs long enough to emit: does S reach the bar before the zero?
     wide = np.flatnonzero(keep & (first >= max(min_width + 1, 1)))
     if wide.size:
+        sp = metrics.begin("extract.screen") if metrics.enabled else None
         _, reached = _segment_sums(s, run_start[wide], first[wide],
                                    reach=min_score)
         wide = wide[reached]
+        if sp is not None:
+            metrics.end(sp)
     return sorted(run_start[wide].tolist() + walked_u)
 
 
@@ -252,6 +282,7 @@ def extract_segment_spans(
     Returns list of (beg, end, score) in the reference's 1-based last-base
     coordinates.
     """
+    global replay_ranges, replays, replay_emits
     n = s.shape[0]
     regions: list[tuple[int, int, float]] = []
     if n == 0:
@@ -265,20 +296,26 @@ def extract_segment_spans(
     # everything position-ordered: an emission's rescan [m+1, z] lies
     # inside its excursion, before the next candidate.
     stack: list = [(0, n - 1)]
+    ranges = tried = 0
     while stack:
         item = stack.pop()
         if isinstance(item, tuple):
+            ranges += 1
             a, b = item
             for u in reversed(_candidates(s[a: b + 1], min_width,
                                           min_score)):
                 stack.append(a + u)
             continue
+        tried += 1
+        sp = metrics.begin("extract.replay") if metrics.enabled else None
         u = item
         S_vals, z = _first_nonpositive(s, u)
         top = (z - 1) if z is not None else (n - 1)
         m_rel = int(np.argmax(S_vals[: top - u + 1]))  # first argmax
         m = u + m_rel
         max_score = float(S_vals[m_rel])
+        if sp is not None:
+            metrics.end(sp)
         if (m - u) >= min_width and max_score >= min_score:
             regions.append((pos_offset + u, pos_offset + m, max_score))
             z_e = z if z is not None else n - 1
@@ -287,6 +324,9 @@ def extract_segment_spans(
                     visits[m + 1] += 1
                     visits[z_e + 1] -= 1
                 stack.append((m + 1, z_e))
+    replay_ranges += ranges
+    replays += tried
+    replay_emits += len(regions)
     return regions
 
 

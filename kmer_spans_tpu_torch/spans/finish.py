@@ -29,11 +29,14 @@ import torch
 from ..ops.blocked import SCREEN_NEG
 from ..ops.gather import SCREEN_SCALE
 from ..stats.ranks import chain_ranks_from_mass, sparse_mass
-from ..utils import native
+from ..utils import metrics, native
 from .extract import extract_spans
 
 #: host int64 "-inf" for composed B-parts
 _NEG64 = -(1 << 62)
+#: candidate blocks finish_weight_spans has pulled from the device (the
+#: ones the step's top C missed)
+pulled_blocks = 0
 
 
 def host_rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
@@ -353,6 +356,7 @@ def finish_spans(
     return SpanPipelineResult(regions=regions, fallback=False)
 
 
+@metrics.traced("finish.weight")
 def finish_weight_spans(
     out: dict,
     n: int,
@@ -384,7 +388,11 @@ def finish_weight_spans(
     blocks, one device gather each; without them such a miss returns
     fallback=True.  A weight of -inf resets the replay's running score to
     0, as in the sequential reference.
+
+    Spans (utils/metrics.py): ``finish.weight`` the call, ``finish.pull``
+    each batch, ``finish.assemble`` each candidate stretch's scores.
     """
+    global pulled_blocks
     block_max, block_last = compose_summaries_exact(
         out["tA"], out["tB"], out["maxA"], out["maxB"]
     )
@@ -410,8 +418,10 @@ def finish_weight_spans(
     if missing.size:
         if pull_fn is None or nbases_dev is None:
             return SpanPipelineResult(regions=[], fallback=True)
+        pulled_blocks += missing.size
         C = max(len(top_idx), 1)
         for s in range(0, missing.size, C):
+            sp = metrics.begin("finish.pull") if metrics.enabled else None
             batch = missing[s:s + C]
             idxp = np.full(C, batch[0], np.int64)
             idxp[:batch.size] = batch
@@ -419,6 +429,8 @@ def finish_weight_spans(
             c_, s_ = c_.cpu().numpy(), s_.cpu().numpy()
             for j, b in enumerate(batch):
                 pulled[int(b)] = (c_[j], s_[j])
+            if sp is not None:
+                metrics.end(sp)
 
     pos_in_pull = {int(bidx): i for i, bidx in enumerate(top_idx)}
     codes = np.asarray(out["codes"])
@@ -441,10 +453,13 @@ def finish_weight_spans(
         j = i
         while j + 1 < nb and cand[j + 1]:
             j += 1
+        sp = metrics.begin("finish.assemble") if metrics.enabled else None
         pairs = [block_data(b) for b in range(i, j + 1)]
         c_flat = np.concatenate([p[0] for p in pairs])
         sc_flat = np.concatenate([p[1] for p in pairs])
         s_flat = np.where(sc_flat, w64[c_flat], 0.0)
+        if sp is not None:
+            metrics.end(sp)
         base_pos = i * block
         visits = None
         if scan_counts is not None:

@@ -29,6 +29,7 @@ from kmer_spans_tpu_torch.ops.screen_scan import (
 )
 from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
 from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
+from kmer_spans_tpu_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
 
@@ -871,3 +872,18 @@ def test_sharded_scans_kernels_match_plain_and_cpu(world_one, k, launches,
         0.75, 100, 20.0)
     assert not res.fallback and not res.overflow and len(res.regions) >= 4
     assert res.regions == pm.regions
+
+
+def test_step_spans_read_the_device_time_of_their_events(card):
+    """On the card each ``regions.step`` span carries the device time of
+    its CUDA event pair, read once the outputs' copy has waited for it;
+    the regions equal the CPU path's with the recorder on."""
+    g = golden_genome()
+    want = api.kmer_low_comp_regions(g, 8, 100, 20.0, thr=0.75,
+                                     device="cpu").regions
+    with metrics.tracing() as rec:
+        got = api.kmer_low_comp_regions(g, 8, 100, 20.0, thr=0.75,
+                                        device=card).regions
+    steps = [s for s in rec.spans if s.name == "regions.step"]
+    assert steps and all(s.attrs["device_ms"] > 0 for s in steps)
+    assert got.tobytes() == want.tobytes()
