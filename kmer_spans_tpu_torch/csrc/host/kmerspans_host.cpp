@@ -11,7 +11,8 @@
 // (ks_replay_packed, ks_replay_scores).  Same arithmetic, same operation
 // order, same f64 folds as the original (ks_pack alone differs: it
 // returns the number of bytes it wrote, where the original returns
-// nothing).  ks_replay_tr, the transition-
+// nothing; ks_replay_scores adds two optional outputs, the scan counts
+// and the candidates, for spans/extract.py).  ks_replay_tr, the transition-
 // score replay, is the C form of the port's spans/tr_pipeline.py
 // replay_tr_segment.
 //
@@ -263,18 +264,33 @@ int64_t ks_replay_packed(const uint32_t* cand_words, const uint8_t* scored,
 }
 
 // ---------------------------------------------------------------------------
-// Candidate replay from PRECOMPUTED per-position scores (the k >= 13
-// path, where the host computes exact f64 ranks only for candidate
-// codes and never holds a 4^k table): same restartable reference scan
-// as ks_replay_packed, s[i] already = ranks[code_i] - threshold at
-// scored positions (anything at unscored ones: they reset the run).
+// Replay from PRECOMPUTED per-position scores: the k >= 13 path, where the
+// host computes exact f64 ranks only for candidate codes and never holds a
+// 4^k table, and the exact path's span extraction (spans/extract.py).  The
+// same restartable reference scan as ks_replay_packed, s[i] already =
+// ranks[code_i] - threshold at scored positions (anything at unscored
+// ones: they reset the run; a -inf score gives S <= 0, which resets too).
+//
+// Two optional outputs, each skipped where its pointer is null:
+//   visits     int64 difference array of length n + 1 (added into): +1 at
+//              each scored run's start a and -1 at b + 1; at each emission
+//              +1 at m + 1 and -1 just past the position where that
+//              excursion closed (b + 1 when it ran to the run's end), so
+//              its prefix sum counts each position's scans, rescans
+//              included;
+//   candidates the count (added into *candidates) of excursions, rescans'
+//              included, that closed or reached the run's end with their
+//              last positive position at least min_width past their first
+//              and max S >= min_score: those the numpy path replays.
 // ---------------------------------------------------------------------------
 int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                          int64_t min_width, double min_score,
                          int64_t base_pos,
                          int64_t* out_beg, int64_t* out_end,
-                         double* out_score, int64_t capacity) {
+                         double* out_score, int64_t capacity,
+                         int64_t* visits, int64_t* candidates) {
     int64_t nreg = 0;
+    int64_t tried = 0;
     int64_t i = 0;
     while (i < n) {
         while (i < n && !scored[i]) ++i;
@@ -284,6 +300,7 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
         while (b < n && scored[b]) ++b;
         --b;
         i = b + 1;
+        if (visits) { ++visits[a]; --visits[b + 1]; }
         int64_t resume = a;
         while (resume <= b) {
             double S = 0.0;
@@ -296,6 +313,8 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                 if (S <= 0.0) {
                     S = 0.0;
                     if (u >= 0) {
+                        if (p - 1 - u >= min_width && mx >= min_score)
+                            ++tried;
                         if (m - u >= min_width && mx >= min_score) {
                             if (nreg < capacity) {
                                 out_beg[nreg] = base_pos + u + 1;
@@ -303,6 +322,7 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                                 out_score[nreg] = mx;
                             }
                             ++nreg;
+                            if (visits) { ++visits[m + 1]; --visits[p + 1]; }
                             resume = m + 1;
                             jumped = true;
                             break;
@@ -315,6 +335,7 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                 else if (S > mx) { mx = S; m = p; }
             }
             if (jumped) continue;
+            if (u >= 0 && b - u >= min_width && mx >= min_score) ++tried;
             if (u >= 0 && m - u >= min_width && mx >= min_score) {
                 if (nreg < capacity) {
                     out_beg[nreg] = base_pos + u + 1;
@@ -322,12 +343,14 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                     out_score[nreg] = mx;
                 }
                 ++nreg;
+                if (visits && m < b) { ++visits[m + 1]; --visits[b + 1]; }
                 resume = m + 1;
                 continue;
             }
             break;
         }
     }
+    if (candidates) *candidates += tried;
     return nreg;
 }
 

@@ -2,17 +2,27 @@
 
 The port's counterpart of ``kmer_spans_tpu/spans/extract.py``, which also
 takes -inf scores (a reset to 0, as in the sequential reference; the
-reference's screen turns NaN after one) and confirms its screen's zeros
-with the sequential fold (the reference trusts them, and on scores that
-tie moves or drops regions).  It implements
-the excursion recursion of SURVEY.md A.4: the reference's jump-back rescan
+reference's screen turns NaN after one) and, on the numpy path, confirms
+its screen's zeros with the sequential fold (the reference trusts them,
+and on scores that tie moves or drops regions).  It implements the
+excursion recursion of SURVEY.md A.4: the reference's jump-back rescan
 is, per positive excursion of the score trace,
 
     split at the FIRST argmax m; emit the prefix (first-positive .. m) if it
     passes (min_width, min_score); rescan the suffix from m+1 with S = 0;
     a failing candidate emits nothing from its whole excursion.
 
-Three layers:
+``extract_spans`` folds with the host library wherever it loads:
+
+  * FOLD (sequential f64, C): ``utils/native.replay_scores``, the
+    reference's loop itself (``ks_replay_scores``), over every scored run
+    of the stretch in one call: the same additions in the same order, the
+    same first argmax and rescans, with the scan counts and the candidate
+    count as optional outputs: bit-identical to the layers below by
+    construction, in one pass over the positions.
+
+Where the library does not load (no C++ compiler), three numpy layers,
+``extract_segment_spans`` a scored run, give the same answer:
 
   * SCREENING (vectorized): per range, the unclamped prefix sum P and its
     running min M give S_screen = P - M, the max-plus scan up to f64
@@ -36,7 +46,8 @@ Three layers:
     rescan's fold starts at 0 <= S_m, stays at or below the first pass's
     (f64 addition is monotone) and so closes by the first pass's zero z.
 
-Spans (utils/metrics.py): ``extract.screen`` the screen and the
+Spans (utils/metrics.py): ``extract.fold`` the library's fold of a
+stretch; on the numpy path ``extract.screen`` the screen and the
 stretches' sums of each range, ``extract.confirm`` its walks,
 ``extract.replay`` each candidate's replay.  The counters below count
 whether the recorder is on or off.
@@ -46,17 +57,20 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..utils import metrics
+from ..utils import metrics, native
 
-#: ranges handed to ``_candidates``: each segment's first pass and each
-#: emission's rescan
+#: ranges handed to ``_candidates`` (numpy path): each segment's first
+#: pass and each emission's rescan
 replay_ranges = 0
-#: the confirmation's sequential walks (``_first_nonpositive`` calls from
-#: a stretch the screen's sums did not confirm)
+#: the confirmation's sequential walks (numpy path: ``_first_nonpositive``
+#: calls from a stretch the screen's sums did not confirm)
 confirm_walks = 0
 #: candidate excursions replayed, and those of them that emitted a region
+#: (both paths: the library's fold counts the same excursions)
 replays = 0
 replay_emits = 0
+#: ``extract_spans`` calls the host library folded
+native_folds = 0
 
 _CHUNK = 4096
 #: the first chunk of a replay, doubled up to _CHUNK: most excursions
@@ -346,9 +360,26 @@ def extract_spans(
 
     visits_full: optional int64 array (len + 1) difference array over BASE
     positions accumulating scan multiplicity (for scan-count parity).
+
+    One fold of the host library where it loads; else the numpy layers,
+    a scored run at a time.
     """
+    global replays, replay_emits, native_folds
     s = np.asarray(s, dtype=np.float64)
     scored = np.asarray(scored, bool)
+    if native.available():
+        sp = metrics.begin("extract.fold") if metrics.enabled else None
+        tried = np.zeros(1, np.int64)
+        beg, end, score = native.replay_scores(
+            s, scored, min_width, min_score, 0, visits=visits_full,
+            candidates=tried)
+        if sp is not None:
+            metrics.end(sp)
+        native_folds += 1
+        replays += int(tried[0])
+        replay_emits += beg.shape[0]
+        return list(zip([seq_id] * beg.shape[0], beg.tolist(), end.tolist(),
+                        score.tolist()))
     n = scored.shape[0]
     regions: list[tuple[int, int, int, float]] = []
     d = np.diff(scored.astype(np.int8))

@@ -128,6 +128,7 @@ COUNTERS = (
     ("spans.extract", "confirm_walks"),
     ("spans.extract", "replays"),
     ("spans.extract", "replay_emits"),
+    ("spans.extract", "native_folds"),
 )
 
 

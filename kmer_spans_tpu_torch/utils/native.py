@@ -11,11 +11,13 @@ not remembered: the next call tries again.  Where there is no compiler,
 run; the api's ``backend="native"`` raises there instead.
 
 Copied from ``kmer_spans_tpu/utils/native.py`` for the entry points the
-port calls: same arguments, same results.  ``find_spans``,
-``count_spectrum`` and ``host_spectrum_sparse`` serve the api's
-``backend="native"``; ``pack_nbases`` is bound as the reference binds it,
-and no caller of the port uses it yet; the rest serve the host finishers
-of the device paths.
+port calls: same arguments, same results (``replay_scores`` adds two
+optional outputs, scan counts and candidates, and sizes its region
+buffers so that it folds once).  ``find_spans``, ``count_spectrum`` and
+``host_spectrum_sparse`` serve the api's ``backend="native"``;
+``pack_nbases`` is bound as the reference binds it, and no caller of the
+port uses it yet; the rest serve the host finishers of the device paths
+and the span extraction of the exact path.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ _SIGNATURES = {
     "ks_mass_of_codes": (_P, _I64, _P, _I64, _P, _P, _P, _I64),
     "ks_replay_packed": (_P, _P, _I64, _I64, _I32, _P, _F64, _I64, _F64,
                          _I64, _P, _P, _P, _I64),
-    "ks_replay_scores": (_P, _P, _I64, _I64, _F64, _I64, _P, _P, _P, _I64),
+    "ks_replay_scores": (_P, _P, _I64, _I64, _F64, _I64, _P, _P, _P, _I64,
+                         _P, _P),
     "ks_replay_tr": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P,
                      _I64),
 }
@@ -248,27 +251,48 @@ def rank_chain(counts: np.ndarray, total: int) -> np.ndarray | None:
 
 def replay_scores(
     s: np.ndarray, scored: np.ndarray, min_width: int, min_score: float,
-    base_pos: int,
+    base_pos: int, visits: np.ndarray | None = None,
+    candidates: np.ndarray | None = None,
 ):
-    """Reference-exact replay from precomputed per-position f64 scores
-    (the k >= 13 candidate-only rank path); None if unavailable."""
+    """Reference-exact replay from precomputed per-position f64 scores:
+    the reference's sequential fold over each run of ``scored`` (the
+    k >= 13 candidate-only rank path, the pm, wide and sharded finishers,
+    and spans/extract.py extract_spans); None if unavailable.
+
+    Returns (beg, end, score) arrays in 1-based last-base coordinates
+    offset by ``base_pos``.  Two optional outputs, both added into:
+    ``visits``, an int64 difference array of len(s) + 1 whose prefix sum
+    counts each position's scans (rescans included); ``candidates``, an
+    int64 array of one element that gains the count of candidate
+    excursions (those spans/extract.py replays).  The region buffers hold
+    len(s) // (min_width + 1) + 1 entries: regions never overlap and each
+    spans at least min_width + 1 positions, so one fold always suffices.
+    """
     lib = _load()
     if lib is None:
         return None
     s = np.ascontiguousarray(s, dtype=np.float64)
-    scored = np.ascontiguousarray(scored, dtype=np.uint8)
-    cap = 256
-    while True:
-        beg = np.empty(cap, dtype=np.int64)
-        end = np.empty(cap, dtype=np.int64)
-        score = np.empty(cap, dtype=np.float64)
-        nreg = lib.ks_replay_scores(
-            s.ctypes.data, scored.ctypes.data, s.shape[0],
-            min_width, min_score, base_pos,
-            beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap)
-        if nreg <= cap:
-            return beg[:nreg], end[:nreg], score[:nreg]
-        cap = int(nreg) + 16
+    scored = np.ascontiguousarray(scored)
+    scored = scored.view(np.uint8) if scored.dtype == np.bool_ else \
+        scored.astype(np.uint8)
+    n = s.shape[0]
+    if scored.shape != (n,):
+        raise ValueError("scored must have one entry a score")
+    for out, size in ((visits, n + 1), (candidates, 1)):
+        if out is not None and (out.dtype != np.int64 or out.shape != (size,)
+                                or not out.flags.c_contiguous):
+            raise ValueError(f"an output must be contiguous int64 [{size}]")
+    cap = n // (max(min_width, 0) + 1) + 1
+    beg = np.empty(cap, dtype=np.int64)
+    end = np.empty(cap, dtype=np.int64)
+    score = np.empty(cap, dtype=np.float64)
+    nreg = lib.ks_replay_scores(
+        s.ctypes.data, scored.ctypes.data, n, min_width, min_score,
+        base_pos, beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap,
+        None if visits is None else visits.ctypes.data,
+        None if candidates is None else candidates.ctypes.data)
+    assert nreg <= cap  # disjoint regions of min_width + 1 positions
+    return beg[:nreg], end[:nreg], score[:nreg]
 
 
 def replay_tr(codes, seed, ext, ks, ts, base_pos: int, min_len: int,

@@ -197,6 +197,98 @@ def test_extract_spans_equals_the_sequential_fold(case, min_width,
     assert np.array_equal(np.cumsum(visits)[:-1], want_visits)
 
 
+def _both_paths(s, scored, min_width, min_score, seq_id=0):
+    """extract_spans with the host library, then with it unloaded (the
+    numpy layers): for each, (regions, visits, the change in ``replays``
+    and ``replay_emits``, folds)."""
+    out = []
+    for loaded in (True, False):
+        with pytest.MonkeyPatch.context() as mp:
+            if not loaded:
+                mp.setattr(native, "_load", lambda: None)
+            before = (extract.replays, extract.replay_emits,
+                      extract.native_folds)
+            visits = np.zeros(s.shape[0] + 1, np.int64)
+            got = extract.extract_spans(s, scored, min_width, min_score,
+                                        seq_id=seq_id, visits_full=visits)
+            out.append((got, visits, extract.replays - before[0],
+                        extract.replay_emits - before[1],
+                        extract.native_folds - before[2]))
+    return out
+
+
+def _case_neg_inf():
+    s = np.array([0.5] * 30 + [-np.inf] + [0.5] * 30 + [-0.2] * 5
+                 + [0.3] * 40 + [-np.inf] * 2 + [0.25] * 20)
+    return s, np.ones(s.shape[0], bool), 10, 2.0
+
+
+def _case_several_runs():
+    rng = np.random.default_rng(11)
+    s = rng.choice(np.round(np.arange(-5, 6) / 10.0, 2), 3000)
+    s[500:900] = np.resize([0.4, -0.3, 0.2], 400)
+    s[1700:2300] = np.resize([0.1, 0.2, -0.3, 0.4], 600)
+    scored = np.ones(s.shape[0], bool)
+    scored[[0, 600, 601, 1800, 2999]] = False
+    return np.where(scored, s, 0.0), scored, 20, 2.0
+
+
+def _case_many_regions():
+    """More regions (~400) than the library's former first buffer of 256
+    held."""
+    rng = np.random.default_rng(5)
+    s = rng.normal(-1.0, 0.5, 40_000)
+    for lo in rng.choice(np.arange(0, 39_950, 60), 400, replace=False):
+        s[lo:lo + int(rng.integers(15, 45))] = rng.uniform(0.2, 1.0)
+    return s, np.ones(s.shape[0], bool), 10, 3.0
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(lambda: (SCORES_A, np.ones(SCORES_A.shape[0], bool),
+                          100, 20.0), id="a_region_moves"),
+    pytest.param(lambda: (SCORES_B, np.ones(SCORES_B.shape[0], bool),
+                          100, 20.0), id="b_region_lost"),
+    pytest.param(_case_neg_inf, id="neg_inf_resets"),
+    pytest.param(lambda: (np.array([-0.1, 0.4, -0.4, 0.4, -0.4]),
+                          np.ones(5, bool), 0, 0.0), id="walk_to_the_end"),
+    pytest.param(lambda: (np.array([-1.0] + [0.5] * 60), np.ones(61, bool),
+                          10, 2.0), id="open_at_the_end"),
+    pytest.param(_case_several_runs, id="several_runs"),
+    pytest.param(_case_many_regions, id="many_regions"),
+])
+def test_library_fold_equals_the_numpy_path(case):
+    """The host library's fold, the numpy layers and the sequential
+    oracle agree: regions (f64 ==), scan counts, the numpy path's
+    replays and emissions counted by the fold; one fold a call."""
+    assert native.available()
+    s, scored, min_width, min_score = case()
+    folded, numpy_path = _both_paths(s, scored, min_width, min_score,
+                                     seq_id=3)
+    want, want_visits = _fold_extract(s, scored, min_width, min_score)
+    assert folded[0] == numpy_path[0] == [(3,) + r[1:] for r in want]
+    assert np.array_equal(folded[1], numpy_path[1])
+    assert np.array_equal(np.cumsum(folded[1])[:-1], want_visits)
+    assert folded[2:4] == numpy_path[2:4]
+    assert folded[3] == len(want) and folded[2] >= len(want)
+    assert (folded[4], numpy_path[4]) == (1, 0)
+    if case is _case_many_regions:
+        assert len(want) > 256
+
+
+@settings(max_examples=100, deadline=None, database=None)
+@given(case=tied_scores(), min_width=st.integers(0, 30),
+       min_score=st.sampled_from([0.0, 0.5, 1.0, 2.0, 5.0]))
+def test_numpy_path_equals_the_library_fold(case, min_width, min_score):
+    """On tied scores with -inf, the numpy layers (the fallback without
+    the library) count the fold's candidates and emissions and give its
+    regions and scan counts."""
+    s, scored = case
+    folded, numpy_path = _both_paths(s, scored, min_width, min_score)
+    assert folded[0] == numpy_path[0]
+    assert np.array_equal(folded[1], numpy_path[1])
+    assert folded[2:4] == numpy_path[2:4]
+
+
 @pytest.mark.parametrize("block_elems", [1 << 20, 64])
 def test_segment_sums_equal_sequential_sums(monkeypatch, block_elems):
     """Each stretch summed from 0, left to right: the first sum <= 0 and

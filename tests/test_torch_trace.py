@@ -23,10 +23,10 @@ from kmer_spans_tpu_torch.spans.pipeline import (
     make_weight_span_pipeline,
     quantize_weight_table,
 )
-from kmer_spans_tpu_torch.utils import metrics
+from kmer_spans_tpu_torch.utils import metrics, native
 
-FINISH_CHILDREN = {"finish.pull", "finish.assemble", "extract.screen",
-                   "extract.confirm", "extract.replay"}
+FINISH_CHILDREN = {"finish.pull", "finish.assemble", "extract.fold",
+                   "extract.screen", "extract.confirm", "extract.replay"}
 
 
 def _low_comp(seqs):
@@ -52,10 +52,21 @@ def test_off_by_default_and_keeps_nothing():
     assert len(rec.spans) == kept == 0
 
 
+def _finish_parents(rec):
+    """{span name: the names of the spans it ran inside}."""
+    parent_of = {}
+    for s in rec.spans:
+        if s.parent >= 0:
+            parent_of.setdefault(s.name, set()).add(rec.spans[s.parent].name)
+    return parent_of
+
+
 def test_spans_nest_under_their_call():
     """Two api calls on two sequences: every span has its call's id; each
     sequence's stage, step, outputs and finish lie in it, and the finish's
-    children in ``finish.weight``."""
+    children in ``finish.weight``: the assembly and the host library's
+    fold, one a candidate stretch."""
+    assert native.available()
     seqs = _two_sequences()
     with metrics.tracing() as rec:
         _low_comp(seqs)
@@ -69,18 +80,18 @@ def test_spans_nest_under_their_call():
         if s.parent >= 0:
             p = sp[s.parent]
             assert p.t0 <= s.t0 and s.t1 <= p.t1 and s.call == p.call
-    parent_of = {}
-    for s in sp:
-        if s.parent >= 0:
-            parent_of.setdefault(s.name, set()).add(sp[s.parent].name)
+    parent_of = _finish_parents(rec)
     assert parent_of["regions.sequence"] == {"api.kmer_low_comp_regions"}
     for name in ("regions.stage", "regions.step", "regions.outputs",
                  "finish.weight"):
         assert parent_of[name] == {"regions.sequence"}
-    assert {"finish.assemble", "extract.screen", "extract.replay"} \
-        <= set(parent_of)
+    assert {"finish.assemble", "extract.fold"} <= set(parent_of)
+    assert not {"extract.screen", "extract.replay"} & set(parent_of)
     for name in FINISH_CHILDREN & set(parent_of):
         assert parent_of[name] == {"finish.weight"}
+    stretches = rec.by_name()["finish.assemble"][0]
+    assert rec.counters["spans.extract:native_folds"] == stretches \
+        == rec.by_name()["extract.fold"][0] > 0
     seq_spans = [s for s in sp if s.name == "regions.sequence"]
     assert [(s.call, s.attrs["seq_id"], s.attrs["bases"])
             for s in seq_spans] == [(c, i, len(seqs[i]))
@@ -92,6 +103,26 @@ def test_spans_nest_under_their_call():
     # two calls of two sequences, each staged twice (the count, the step)
     assert rec.counters["parallel.device:staged_bytes"] == \
         2 * 2 * 2 * pdevice.bucket_size(60_000)
+
+
+def test_numpy_path_spans_nest_under_the_finish(monkeypatch):
+    """Without the host library the numpy layers extract: their screen
+    and replays lie in ``finish.weight``, no fold runs, and the same
+    regions come out."""
+    seqs = _two_sequences()
+    with_fold = _low_comp(seqs)
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with metrics.tracing() as rec:
+        got = _low_comp(seqs)
+    assert got.tobytes() == with_fold.tobytes() and got.size
+    parent_of = _finish_parents(rec)
+    assert {"finish.assemble", "extract.screen", "extract.replay"} \
+        <= set(parent_of)
+    assert "extract.fold" not in parent_of
+    for name in FINISH_CHILDREN & set(parent_of):
+        assert parent_of[name] == {"finish.weight"}
+    assert rec.counters["spans.extract:native_folds"] == 0
+    assert rec.counters["spans.extract:replays"] > 0
 
 
 def _extract_tied(s):
@@ -175,6 +206,9 @@ def test_pulled_blocks_are_the_missing_candidates():
     assert finish.pulled_blocks - before == sum(map(len, asked)) \
         == rec.counters["spans.finish:pulled_blocks"]
     assert rec.by_name()["finish.pull"][0] == len(asked)
+    # the library folds each candidate stretch once
+    assert rec.counters["spans.extract:native_folds"] == \
+        rec.by_name()["finish.assemble"][0] > 0
 
 
 def test_an_exception_closes_the_spans_it_left_open():
