@@ -25,10 +25,11 @@ The device path of each function:
   * kmer_regions, kmer_spans and kmer_low_comp_regions(mode="exact"), the
     default: a weight table (models/scoring.py), its integer screen on the
     device (spans/pipeline.py make_weight_span_pipeline, K3 for the scan
-    counts), one sequence at a time, and the exact f64 replay of the
-    candidate blocks on the host (spans/finish.py finish_weight_spans),
-    with the candidate blocks the top C missed pulled from the device in
-    batches;
+    counts), one sequence at a time (on CUDA, up to 2^20 positions, the
+    replay of a CUDA graph captured once a padded size), and the exact
+    f64 replay of the candidate blocks on the host (spans/finish.py
+    finish_weight_spans), with the candidate blocks the top C missed
+    pulled from the device in batches;
   * kmer_low_comp_regions(mode="fast"): one device pipeline over all
     sequences at once, for 2 <= k <= 9 (the class screen of
     spans/pipeline.py: fused at 4 <= k <= 8, non-fused at k = 2, 3 and 9)
@@ -265,9 +266,10 @@ def _call_regions(
 
     Spans (utils/metrics.py) on the device path: ``regions.sequence`` a
     sequence, and inside it ``regions.stage`` (staging and the copy to
-    the device), ``regions.step`` (the step's launches; on CUDA its
-    ``device_ms`` from an event pair), ``regions.outputs`` (the copy of
-    its outputs to the host, which waits for the step) and the finish.
+    the device), ``regions.step`` (the step's launches or its graph's
+    replay; on CUDA its ``device_ms`` from an event pair),
+    ``regions.outputs`` (the copy of its outputs to the host, which waits
+    for the step) and the finish.
 
     Returns (regions, scan counts int64 [4^k] or None).
     """

@@ -32,7 +32,9 @@ The arbitrary-weight pipeline (``make_weight_span_pipeline``, with
 kmer_regions, the default kmer_low_comp_regions and kmer_spans.  It
 screens with an int32 table quantized up from the caller's f64 weights
 and adds the scan histogram (K3); spans/finish.py finish_weight_spans
-replays its candidates from the f64 weights.
+replays its candidates from the f64 weights.  On CUDA, up to 2^20
+positions (uses_graph), its step is the replay of a CUDA graph captured
+once for each shape, which replaces the chain's ~116 launches by one.
 
 Differences from the reference: ties in the top-C choice go to the lower
 block index through a stable descending sort (lax.top_k's rule;
@@ -45,6 +47,8 @@ left out (the codes are the same either way).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -106,10 +110,7 @@ def _top_blocks(tA, tB, maxA, maxB, C: int, x_in: int = 0) -> torch.Tensor:
     """
     block_max, block_last = compose_summaries_int64(tA, tB, maxA, maxB,
                                                     x0=x_in)
-    nb = block_max.shape[0]
-    linked = torch.zeros(nb, dtype=torch.bool, device=block_max.device)
-    linked[0] = x_in > 0
-    linked[1:] = block_last[:-1] > 0
+    linked = torch.cat([block_last.new_full((1,), x_in), block_last[:-1]]) > 0
     run = torch.cumsum(~linked, 0) - (~linked[0]).to(torch.int64)
     run_max = torch.full_like(block_max, -(1 << 62)).scatter_reduce(
         0, run, block_max, "amax")[run]
@@ -377,6 +378,70 @@ def quantize_weight_table(weights, threshold: float, block: int):
     return w_q, scale
 
 
+#: the step of make_weight_span_pipeline replays a captured CUDA graph on
+#: CUDA for n <= GRAPH_MAX_N positions and k <= GRAPH_MAX_K: there its ~116
+#: launches (~1.5 ms of host time) outweigh its device work (~0.14 ns a
+#: position, ~0.15 ms at 2^20), while each captured size keeps a memory pool
+#: of its own and a copy of the 4^k table (64 MB at k = 12); above either
+#: bound the eager chain runs, as it does on the CPU
+GRAPH_MAX_N = 1 << 20
+GRAPH_MAX_K = 12
+#: eager runs on the capture's stream before a capture (they set up the
+#: sorts' workspaces, as torch.cuda.graphs asks)
+GRAPH_WARMUPS = 2
+
+#: steps run by a graph replay, and graphs captured (utils/metrics.py
+#: COUNTERS)
+graph_steps = 0
+graph_captures = 0
+
+#: the captured steps, by (k, block, cand_blocks, with_scan_counts, n,
+#: device index): they outlive the fn that captured them, since the api
+#: builds one a sequence
+_graphs: dict[tuple, _Graph] = {}
+
+
+def uses_graph(device_type: str, n: int, k: int) -> bool:
+    """Whether the weight step on ``n`` positions replays a CUDA graph."""
+    return device_type == "cuda" and n <= GRAPH_MAX_N and k <= GRAPH_MAX_K
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    nbases: torch.Tensor  # static inputs, outside the graph's pool
+    w_q: torch.Tensor
+    out: dict  # static outputs, in the graph's pool
+    k3_launches: int  # K3 launches in one replay
+
+
+def _capture(chain, nbases: torch.Tensor, w_q: torch.Tensor) -> _Graph:
+    """Captures ``chain(nbases, w_q)`` on copies of its inputs, after
+    GRAPH_WARMUPS eager runs; neither adds to histogram_launches (a replay
+    does).  A capture's error propagates."""
+    global graph_captures
+    launches = histogram.histogram_launches
+    dev = nbases.device
+    nbases, w_q = nbases.clone(), w_q.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        for _ in range(GRAPH_WARMUPS):
+            chain(nbases, w_q)
+        before = histogram.histogram_launches
+        graph.capture_begin()
+        try:
+            out = chain(nbases, w_q)
+        finally:
+            graph.capture_end()
+        k3 = histogram.histogram_launches - before
+    torch.cuda.current_stream(dev).wait_stream(side)
+    histogram.histogram_launches = launches
+    graph_captures += 1
+    return _Graph(graph, nbases, w_q, out, k3)
+
+
 def make_weight_span_pipeline(
     k: int,
     block: int = 4096,
@@ -398,6 +463,14 @@ def make_weight_span_pipeline(
     in int64 and the top C is run-aware, ties to the lower block index
     (spans/pipeline.py _top_blocks).
 
+    Where ``uses_graph`` (CUDA, n <= GRAPH_MAX_N, k <= GRAPH_MAX_K) the
+    step is a replay of a CUDA graph captured at the first step of its
+    shape (counted in graph_captures; each replay in graph_steps): nbases
+    and w_q are copied into the graph's static inputs, and the dict holds
+    its static outputs, which the next step of the same shape overwrites,
+    so the caller copies them out first.  ``fn.eager`` runs the same chain
+    without a graph, at any size.
+
     ``fn.pull(nbases, idx)`` returns (codes, scored) of the blocks idx,
     equal to those rows of the main call (ops/blocked.py
     block_rows_codes): spans/finish.py finish_weight_spans pulls there the
@@ -417,11 +490,15 @@ def make_weight_span_pipeline(
             raise ValueError(f"n={n} is not a positive multiple of {block}")
         return nbases, n // block
 
-    def fn(nbases, w_q):
-        nbases, nb = _genome(nbases)
+    def _inputs(nbases, w_q):
+        nbases, _ = _genome(nbases)
         w_q = torch.as_tensor(w_q, device=dev)
         if w_q.dtype != torch.int32 or tuple(w_q.shape) != (size,):
             raise TypeError(f"w_q must be int32 [{size}]")
+        return nbases, w_q
+
+    def chain(nbases, w_q):
+        nb = nbases.shape[0] // block
         v2 = (nbases < 4).reshape(nb, block)
         codes, kmer_valid = blocked_codes((nbases & 3).reshape(nb, block),
                                           v2, k)
@@ -444,10 +521,30 @@ def make_weight_span_pipeline(
                 codes.reshape(-1), scored.reshape(-1), size)
         return out
 
+    def fn(nbases, w_q):
+        global graph_steps
+        nbases, w_q = _inputs(nbases, w_q)
+        n = nbases.shape[0]
+        if not uses_graph(nbases.device.type, n, k):
+            return chain(nbases, w_q)
+        key = (k, block, cand_blocks, with_scan_counts, n,
+               nbases.device.index)
+        g = _graphs.get(key)
+        if g is None:
+            g = _graphs[key] = _capture(chain, nbases, w_q)
+        else:
+            g.nbases.copy_(nbases)
+            g.w_q.copy_(w_q)
+        g.graph.replay()
+        graph_steps += 1
+        histogram.histogram_launches += g.k3_launches
+        return dict(g.out)
+
     def pull(nbases, idx):
         nbases, _ = _genome(nbases)
         return block_rows_codes(nbases, torch.as_tensor(idx, device=dev), k,
                                 block)
 
+    fn.eager = lambda nbases, w_q: chain(*_inputs(nbases, w_q))
     fn.pull = pull
     return fn

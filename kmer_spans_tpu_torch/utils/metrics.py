@@ -129,6 +129,8 @@ COUNTERS = (
     ("spans.extract", "replays"),
     ("spans.extract", "replay_emits"),
     ("spans.extract", "native_folds"),
+    ("spans.pipeline", "graph_steps"),
+    ("spans.pipeline", "graph_captures"),
     ("parallel.window_stream", "chunks"),
     ("parallel.window_stream", "window_starts"),
 )

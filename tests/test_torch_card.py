@@ -415,14 +415,80 @@ def test_weight_pipeline_kernel_matches_plain(card, k, monkeypatch):
     before = histogram.histogram_launches
     got = fn(arr, w_q)
     assert histogram.histogram_launches == before + 1
+    # a graph captured with K3 replays K3: the plain histogram runs in
+    # the eager chain (it syncs on the host, so no graph can hold it)
     monkeypatch.setattr(histogram, "histogram", histogram_plain)
-    want = fn(arr, w_q)
+    want = fn.eager(arr, w_q)
     for key in want:
         assert torch.equal(got[key], want[key]), key
     idx = torch.tensor([0, 5, arr.size // 4096 - 1], device=card)
     for g, w in zip(fn.pull(arr, idx), make_weight_span_pipeline(
             k, device="cpu").pull(arr, idx.cpu())):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [1 << 12, 1 << 16, 1 << 20])
+@pytest.mark.parametrize("k", [2, 8, 12])
+def test_weight_step_graph_equals_eager(card, k, n):
+    """Up to 2^20 positions the step replays a captured graph: bit for bit
+    the eager chain, scan histogram included, for two tables in a row
+    through the same graph; one K3 launch a replay, none at capture."""
+    from kmer_spans_tpu_torch.spans import pipeline
+    from kmer_spans_tpu_torch.spans.pipeline import (
+        make_weight_span_pipeline,
+        quantize_weight_table,
+    )
+
+    rng = np.random.default_rng(k * n)
+    arr = rng.integers(0, 4, n).astype(np.uint8)
+    arr[rng.random(n) < 0.002] = 4
+    arr[1000:3000] = np.tile(np.array([0, 3], np.uint8), 1000)
+    fn = make_weight_span_pipeline(k, cand_blocks=min(128, n // 4096),
+                                   with_scan_counts=True, device=card)
+    assert pipeline.uses_graph("cuda", n, k)
+    captures = pipeline.graph_captures
+    for i in range(2):
+        w_q, _ = quantize_weight_table(
+            rng.normal(-0.2 * (i + 1), 1.0, 1 << (2 * k)), 0.0, 4096)
+        steps, launches = pipeline.graph_steps, histogram.histogram_launches
+        got = {key: v.clone() for key, v in fn(arr, w_q).items()}
+        assert pipeline.graph_steps == steps + 1
+        assert histogram.histogram_launches == launches + 1
+        want = fn.eager(arr, w_q)
+        assert set(got) == set(want) and "scan_hist" in got
+        for key in want:
+            assert torch.equal(got[key], want[key]), (i, key)
+    assert pipeline.graph_captures - captures <= 1
+
+
+def test_low_comp_regions_on_a_fragmented_assembly(card):
+    """300 contigs across the graph's sizes and above them (2^12 to 2^21
+    positions): the regions of the native library's caller, one replay a
+    contig of at most 2^20 positions."""
+    from kmer_spans_tpu_torch.parallel.device import bucket_size
+    from kmer_spans_tpu_torch.spans import pipeline
+
+    rng = np.random.default_rng(300)
+    lengths = np.minimum(1000 + (rng.pareto(1.5, 300) * 8000).astype(int),
+                         1_500_000)
+    lengths[:3] = (1_200_000, 700_000, 3_000)
+    seqs = []
+    for n in lengths:
+        arr = rng.integers(0, 4, n).astype(np.uint8)
+        arr[rng.random(n) < 0.001] = 4
+        for s in range(500, n - 900, 20_000):
+            arr[s:s + 800] = np.tile(np.array([0, 3], np.uint8), 400)
+        seqs.append("".join("ACTGN"[b] for b in arr))
+    pads = [bucket_size(n) for n in lengths]
+    assert min(pads) == 1 << 12 and max(pads) == 1 << 21
+    steps = pipeline.graph_steps
+    got = api.kmer_low_comp_regions(seqs, 8, 100, 20.0, thr=0.75,
+                                    device=card)
+    assert pipeline.graph_steps - steps == sum(p <= 1 << 20 for p in pads)
+    want = api.kmer_low_comp_regions(seqs, 8, 100, 20.0, thr=0.75,
+                                     backend="native")
+    assert len(got.regions) >= 300
+    assert np.array_equal(got.regions, want.regions)
 
 
 @pytest.mark.parametrize("k", [8, 12])
