@@ -1039,8 +1039,6 @@ def pm_phase(dev, nbases_dev, card: str) -> tuple[int, dict]:
 
     n = nbases_dev.shape[0]
     cand = cand_blocks(n)
-    log(f"  host replay through the native library: "
-        f"{pm_finish.native.available()}")
     launches, regions = 0, {}
     for k, strategy in ((12, "packed"), (13, None), (15, None)):
         fn, meta = make_pm_span_pipeline(k, block=BLOCK, cand_blocks=cand,
@@ -1075,10 +1073,10 @@ def class_sort_phase(dev, nbases: np.ndarray, nbases_dev, card: str):
     import torch
 
     from kmer_spans_tpu_torch.ops import gather, histogram
-    from kmer_spans_tpu_torch.spans import pm_finish
     from kmer_spans_tpu_torch.spans.finish import finish_spans, \
         unpack_outputs
     from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
+    from kmer_spans_tpu_torch.utils import native
 
     n = nbases_dev.shape[0]
     cand = cand_blocks(n)
@@ -1090,9 +1088,8 @@ def class_sort_phase(dev, nbases: np.ndarray, nbases_dev, card: str):
         counts = None
         if not fn.packed_counts:
             t0 = time.perf_counter()
-            counts, _ = pm_finish.native.host_spectrum(nbases, k)
-            log(f"  k={k}: host recount {time.perf_counter() - t0:.3f} s "
-                f"(native library: {pm_finish.native.available()})")
+            counts, _ = native.host_spectrum(nbases, k)
+            log(f"  k={k}: host recount {time.perf_counter() - t0:.3f} s")
 
         def finish(host):
             out = unpack_outputs(host, k, n, BLOCK, cand,

@@ -6,9 +6,12 @@ Counterpart of ``kmer_spans_tpu/api.py``.  Every function that takes a
   * ``backend="auto"`` (the default) runs the device path on ``device``
     ("cuda" by default, or "cpu" for the kernels' plain versions); it
     stands in for the reference's "jax" and never picks a CPU backend.
-    A CUDA device without a card raises;
+    A CUDA device without a card raises.  Its host finish needs the
+    port's host C++ library (utils/native.py): where that does not build
+    or load, the call raises RuntimeError;
   * ``backend="host"`` runs the port's sequential oracle (oracle.py) one
-    sequence at a time, as the reference's "host" does;
+    sequence at a time, as the reference's "host" does; it loads no host
+    library, so it is the route for a machine without a C++ compiler;
   * ``backend="native"`` runs the port's host C++ library
     (utils/native.py: count_spectrum, find_spans) where the reference's
     "native" does, and the oracle where the reference does too
@@ -148,6 +151,20 @@ def _resolve(backend: str, device):
     if backend not in ("host", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     return backend, None
+
+
+def _rank_scoring(cr: KmerCountResult, thr: float,
+                  backend: str) -> ScoringModel:
+    """RankScoring over a spectrum.  Under "host" the weights are the
+    oracle's weighted_ranks (the same chain bit for bit): RankScoring's
+    chain takes the host library from 2^20 entries, and the host backend
+    loads none."""
+    if backend != "host":
+        return RankScoring(cr.counts, cr.n, thr)
+    if not 0.0 < thr < 1.0:
+        raise ValueError("the threshold must be between 0 and 1")
+    return ScoringModel(weights=oracle.weighted_ranks(cr.counts, cr.n),
+                        threshold=thr)
 
 
 def _nbases_of(p: PackedSeq) -> np.ndarray:
@@ -405,7 +422,7 @@ def kmer_low_comp_regions(
                 "word")
         return _low_comp_fast(packed, k, min_w, min_score, thr, dev)
     cr = kmer_counts(packed, k, with_f=False, device=dev, backend=backend)
-    model = RankScoring(cr.counts, cr.n, thr)
+    model = _rank_scoring(cr, thr, backend)
     regions, _ = _call_regions(packed, k, model, min_w, min_score, dev,
                                want_scan_counts=False, backend=backend)
     return RegionResult(
@@ -449,7 +466,7 @@ def kmer_spans(
                             device=dev, backend=backend)
     cr = kmer_counts(packed, k, with_f=False, device=dev, backend=backend)
     if scoring == "rank":
-        model = RankScoring(cr.counts, cr.n, thr)
+        model = _rank_scoring(cr, thr, backend)
     elif scoring == "threshold":
         if f_t is None:
             f_t = spectrum_median_freq(cr.counts)

@@ -13,7 +13,7 @@
 // returns the number of bytes it wrote, where the original returns
 // nothing; ks_replay_scores adds two optional outputs, the scan counts
 // and the candidates, for spans/extract.py).  ks_replay_tr, the transition-
-// score replay, is the C form of the port's spans/tr_pipeline.py
+// score replay, is the C form of the JAX package's spans/tr_pipeline.py
 // replay_tr_segment.
 //
 // Built at first use with the system C++ compiler into
@@ -168,7 +168,7 @@ int64_t ks_spans(const uint8_t* nb, int64_t n, int32_t k,
 // k-1 halo bases) followed by block/16 words of 2-bit bases.  Replays the
 // reference scan (first-positive -> first-argmax, jump-back rescans) over
 // the scored positions with s = ranks[code] - threshold in sequential f64,
-// bit-identical to the numpy finisher (spans/extract.py) and to
+// bit-identical to ks_replay_scores over the same scores and to
 // src/kmer_spans.c:243-307.  Coordinates: 1-based last-base positions
 // offset by base_pos (the global 0-based position of element 0).  Returns
 // total regions (only the first `capacity` are written).
@@ -264,9 +264,10 @@ int64_t ks_replay_packed(const uint32_t* cand_words, const uint8_t* scored,
 }
 
 // ---------------------------------------------------------------------------
-// Replay from PRECOMPUTED per-position scores: the k >= 13 path, where the
-// host computes exact f64 ranks only for candidate codes and never holds a
-// 4^k table, and the exact path's span extraction (spans/extract.py).  The
+// Replay from PRECOMPUTED per-position scores: the one fold of every host
+// finisher of the device paths (spans/extract.py extract_spans), the
+// k >= 13 path among them, where the host computes exact f64 ranks only
+// for candidate codes and never holds a 4^k table.  The
 // same restartable reference scan as ks_replay_packed, s[i] already =
 // ranks[code_i] - threshold at scored positions (anything at unscored
 // ones: they reset the run; a -inf score gives S <= 0, which resets too).
@@ -281,7 +282,7 @@ int64_t ks_replay_packed(const uint32_t* cand_words, const uint8_t* scored,
 //   candidates the count (added into *candidates) of excursions, rescans'
 //              included, that closed or reached the run's end with their
 //              last positive position at least min_width past their first
-//              and max S >= min_score: those the numpy path replays.
+//              and max S >= min_score: the candidate excursions.
 // ---------------------------------------------------------------------------
 int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
                          int64_t min_width, double min_score,
@@ -356,11 +357,12 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
 
 // ---------------------------------------------------------------------------
 // Transition-score replay over one stretch of candidate positions: the C
-// form of spans/tr_pipeline.py replay_tr_segment (the reference's
-// find_kmer_tr_lr_regions, src/kmer_spans.c:329-395), same control flow
-// and the same f64 operations in the same order.  Per position its k-mer
-// code and its seed / extension flags; a seed scores max(ks[code], 0), an
-// extension adds ts[code]; any other position closes the block.  seq_len
+// form of the JAX package's spans/tr_pipeline.py replay_tr_segment (the
+// reference's find_kmer_tr_lr_regions, src/kmer_spans.c:329-395), same
+// control flow and the same f64 operations in the same order.  Per
+// position its k-mer code and its seed / extension flags; a seed scores
+// max(ks[code], 0), an extension adds ts[code]; any other position closes
+// the block.  seq_len
 // >= 0: a seed whose k-mer ends within 2 bytes of it ends the replay (the
 // reference's :341 quirk); < 0: no such check.  Coordinates: 1-based
 // last-base positions offset by base_pos.  Returns total regions (only the

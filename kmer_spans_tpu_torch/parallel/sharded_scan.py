@@ -44,10 +44,10 @@ import torch
 
 from ..ops.blocked import SCREEN_NEG, blocked_scan_summaries_int
 from ..ops.gather import SCREEN_SCALE, screen_thr_q
-from ..spans.finish import _replay_stretch, compose_summaries_exact
+from ..spans.extract import extract_spans
+from ..spans.finish import compose_summaries_exact
 from ..spans.pipeline import _top_blocks
 from ..stats.ranks import chain_ranks_from_mass
-from ..utils import native
 from .collectives import DataGroup, all_gather, all_to_all, pmax
 from .pipeline import shard_codes
 from .sharded import (
@@ -202,18 +202,6 @@ def stretches(cand: np.ndarray):
     return zip(np.nonzero(d == 1)[0], np.nonzero(d == -1)[0] - 1)
 
 
-def replay(s_flat, sc_flat, base_pos: int, min_width: int,
-           min_score: float, seq_id: int) -> list:
-    """The exact f64 replay of one candidate stretch: the host library's,
-    else spans/extract.py's (bit-identical); regions in sequence coords."""
-    rep = (native.replay_scores(s_flat, sc_flat, min_width, min_score,
-                                base_pos) if native.available() else None)
-    if rep is None:
-        return _replay_stretch(s_flat, sc_flat, base_pos, min_width,
-                               min_score, seq_id)
-    return [(seq_id, int(b), int(e), float(v)) for b, e, v in zip(*rep)]
-
-
 def finish_sharded_spans(out, n: int, total: int, thr: float,
                          min_width: int, min_score: float, block: int,
                          seq_id: int = 0,
@@ -249,8 +237,9 @@ def finish_sharded_spans(out, n: int, total: int, thr: float,
         sc_flat = sc[rows].reshape(-1)
         ranks = (pm_flat / total if value_hist is None
                  else ranks_u[np.searchsorted(uniq, pm_flat)])
-        regions += replay(np.where(sc_flat, ranks - thr, 0.0), sc_flat,
-                          i * block, min_width, min_score, seq_id)
+        regions += extract_spans(np.where(sc_flat, ranks - thr, 0.0),
+                                 sc_flat, min_width, min_score,
+                                 seq_id=seq_id, base_pos=i * block)
     return ShardedScanResult(regions, False, overflow)
 
 

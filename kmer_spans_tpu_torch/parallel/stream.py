@@ -71,8 +71,7 @@ from ..ops.rowgather import (
     row_screen_scores_affine,
 )
 from ..ops.screen_scan import MAX_BLOCK
-from ..spans.extract import _first_nonpositive, _segment_check, \
-    extract_spans
+from ..spans.extract import extract_spans
 from ..spans.finish import compose_summaries_exact, host_rank_chain, \
     rebuild_codes
 from ..spans.pipeline import _top_blocks, aug_words, pack_candidates
@@ -83,6 +82,106 @@ from ..utils import native
 CLASS_MAX_K = 9
 #: K2's range (16-bit codes in the aug words)
 FUSED_MAX_K = 8
+
+#: the stream's sequential sums (``_first_nonpositive``): chunks of up to
+#: _CHUNK elements, the first _FIRST_CHUNK long and doubled from there,
+#: since most excursions close within it
+_CHUNK = 4096
+_FIRST_CHUNK = 64
+#: elements of one block of stretches summed at once (``_segment_sums``)
+_BLOCK_ELEMS = 1 << 20
+
+
+def _first_nonpositive(s: np.ndarray, u: int):
+    """Sequential S replay from u: exact left-to-right f64 partial sums.
+
+    Returns (S_vals, z): S_vals[i] is S at index u+i; z is the absolute
+    index of the first position with S <= 0, or None if the array ends with
+    S > 0 throughout (S_vals then covers u..n-1).
+    """
+    n = s.shape[0]
+    parts: list[np.ndarray] = []
+    carry = 0.0
+    lo = u
+    step = _FIRST_CHUNK
+    while lo < n:
+        hi = min(lo + step, n)
+        step = min(2 * step, _CHUNK)
+        # seed the chunk with the carry as element 0: np.add.accumulate is
+        # strictly sequential, so rounding order matches the reference's
+        block = np.empty(hi - lo + 1, dtype=np.float64)
+        block[0] = carry
+        block[1:] = s[lo:hi]
+        acc = np.add.accumulate(block)[1:]
+        parts.append(acc)
+        nonpos = acc <= 0.0
+        if nonpos.any():
+            z = lo + int(np.argmax(nonpos))
+            full = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            return full[: z - u + 1], z
+        carry = float(acc[-1])
+        lo = hi
+    return (parts[0] if len(parts) == 1 else np.concatenate(parts)), None
+
+
+def _segment_sums(w: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """Strictly sequential f64 sums of ``w`` over the stretches
+    [starts[i], starts[i] + lens[i]), each from 0.
+
+    ``starts`` is sorted.  Returns first: first[i] is the offset of the
+    stretch's first sum <= 0 (lens[i] when there is none).
+    ``np.add.accumulate`` adds left to right along a row, so each
+    stretch's sums are the fold's own.  The stretches go in rows of one
+    block (of one power-of-four width each where one block would waste
+    too much), one accumulate a block, every row closed by a -inf just
+    past its stretch: its first sum <= 0 is then always in the row.
+    """
+    first = lens.copy()
+    if not lens.size:
+        return first
+    w = np.ascontiguousarray(w)
+    longest = int(lens.max())
+    wp = w if starts[-1] + longest < w.shape[0] else \
+        np.concatenate((w, np.zeros(longest + 1)))
+    # row j of rows_of is wp[j : j + longest + 1], a view
+    rows_of = np.ndarray((wp.shape[0] - longest, longest + 1), wp.dtype, wp,
+                         0, (wp.itemsize, wp.itemsize))
+    if lens.shape[0] * longest <= _BLOCK_ELEMS // 16:
+        blocks = [(slice(None), longest)]
+    else:  # by the power of four at or above each length
+        bucket = (np.frexp(np.maximum(lens, 1) - 1)[1] + 1) // 2
+        blocks = []
+        for e in np.flatnonzero(np.bincount(bucket)).tolist():
+            sel = np.flatnonzero(bucket == e)
+            step = max(_BLOCK_ELEMS >> 2 * e, 1)
+            blocks += [(sel[i:i + step], min(1 << 2 * e, longest))
+                       for i in range(0, sel.size, step)]
+    for r, width in blocks:
+        ln = lens[r]
+        g = rows_of[starts[r], : width + 1]
+        g[np.arange(ln.shape[0]), ln] = -np.inf
+        acc = np.add.accumulate(g, axis=1, out=g)
+        first[r] = (acc <= 0).argmax(axis=1)
+    return first
+
+
+def _segment_check(w: np.ndarray, lo: int, ends: np.ndarray):
+    """Strictly sequential f64 sums of ``w`` from ``lo``, restarted at 0
+    after each of ``ends`` (sorted, the first >= lo): the first segment
+    whose sums do not stay above 0 before its end and reach <= 0 at it.
+
+    Returns (i, j): i is that segment's index into ``ends`` (len(ends)
+    when there is none); j is where its sums first reach <= 0, None when
+    they stay above 0 through its end (``_segment_sums``).
+    """
+    starts = np.concatenate(([lo], ends[:-1] + 1))
+    lens = ends - starts + 1
+    first = _segment_sums(w, starts, lens)
+    bad = np.nonzero(first != lens - 1)[0]
+    if not bad.size:
+        return ends.size, None
+    i = int(bad[0])
+    return i, (int(starts[i] + first[i]) if first[i] < lens[i] else None)
 
 
 def tail_close(tail_s: np.ndarray, tail_sc: np.ndarray, x0_ub: float,
@@ -104,8 +203,7 @@ def tail_close(tail_s: np.ndarray, tail_sc: np.ndarray, x0_ub: float,
     entry itself when x0_ub is 0; else the fold starts from x0_ub, which
     bounds S from above and meets the true S at its first zero).  The
     bound's closes after the anchor are taken as the fold's zeros and
-    checked all at once (``spans.extract._segment_check``, on the sums
-    with which ``extract_spans`` confirms its screen's zeros: those
+    checked all at once (``_segment_check``: the sums that
     ``_first_nonpositive`` takes, for many excursions in one accumulate,
     where one call an excursion walks a margin of short excursions far
     slower); where one is not, the fold goes on past it,
@@ -468,8 +566,8 @@ class StreamingSpanPipeline:
 
     def _unpack_payload(self, vec, ranks, thr):
         """Decode packed codes/bits; candidates stay as packed words
-        (decoded per stretch, natively when the host library is
-        available); margins (small) decode to s/scored eagerly.
+        (decoded per stretch by the host library's packed replay);
+        margins (small) decode to s/scored eagerly.
 
         ranks: the reference's f64 sequential rank chain (or a model's
         weights): replayed scores are bit-identical to the C reference
@@ -813,12 +911,9 @@ class StreamingSpanPipeline:
                 boundary_done_global = base + m * block  # best effort
             else:
                 clip = z_close + 1
-                regs = extract_spans(joined_s[:clip], joined_sc[:clip],
-                                     min_width, min_score, seq_id=seq_id)
-                regions.extend(
-                    (sid, open_start + beg, open_start + end, sc)
-                    for sid, beg, end, sc in regs
-                )
+                regions.extend(extract_spans(
+                    joined_s[:clip], joined_sc[:clip], min_width, min_score,
+                    seq_id=seq_id, base_pos=open_start))
                 boundary_done_global = open_start + z_close
 
         # --- C. in-chunk candidate extraction with ownership masking ------
@@ -826,7 +921,6 @@ class StreamingSpanPipeline:
             return regions, open_next, x_out
         missing = np.nonzero(cand & ~have)[0]
         pulled = self._pull_missing(pull, missing) if missing.size else {}
-        use_native = native.available()
         i = 0
         while i < nb:
             if not cand[i]:
@@ -842,7 +936,7 @@ class StreamingSpanPipeline:
             if clip_from_global is not None:
                 msk |= gpos >= clip_from_global
             blocks = range(i, j + 1)
-            if use_native and not any(b in pulled for b in blocks):
+            if not any(b in pulled for b in blocks):
                 rows = [pos_in_pull[b] for b in blocks]
                 beg, end, sc = native.replay_packed(
                     w_cand[rows], sc_cand[rows] & ~msk, block, self.k,
@@ -862,11 +956,8 @@ class StreamingSpanPipeline:
                     for b in blocks]) & ~msk).reshape(-1)
                 s_flat = np.where(
                     sc_flat, ranks[codes.reshape(-1)] - thr, 0.0)
-                regs = extract_spans(s_flat, sc_flat, min_width,
-                                     min_score, seq_id=seq_id)
-                regions.extend(
-                    (sid, beg + bp, end + bp, sc)
-                    for sid, beg, end, sc in regs
-                )
+                regions.extend(extract_spans(s_flat, sc_flat, min_width,
+                                             min_score, seq_id=seq_id,
+                                             base_pos=bp))
             i = j + 1
         return regions, open_next, x_out

@@ -56,6 +56,7 @@ from ..ops.sortscreen import (
     rank_ub_tables,
     runs_kind,
 )
+from ..spans.extract import extract_spans
 from ..stats.ranks import chain_ranks_from_mass, sparse_mass
 from .collectives import (
     DataGroup,
@@ -71,7 +72,6 @@ from .sharded_scan import (
     candidate_blocks,
     local_shard,
     mesh_top_blocks,
-    replay,
     stretches,
 )
 
@@ -221,8 +221,9 @@ def finish_wide_sharded(out, n: int, k: int, thr: float, min_width: int,
         sc_flat = sc[rows].reshape(-1)
         qi = np.minimum(np.searchsorted(uniq, c_flat),
                         max(len(uniq) - 1, 0))
-        regions += replay(np.where(sc_flat, ranks_u[qi] - thr, 0.0),
-                          sc_flat, i * block, min_width, min_score, seq_id)
+        regions += extract_spans(np.where(sc_flat, ranks_u[qi] - thr, 0.0),
+                                 sc_flat, min_width, min_score,
+                                 seq_id=seq_id, base_pos=i * block)
     return WideShardedResult(regions, False, overflow)
 
 

@@ -1,12 +1,15 @@
-"""Host finishers of the span pipeline: numpy copies of the reference's.
+"""Host finishers of the span pipeline: copies of the reference's.
 
-Verbatim copies of ``kmer_spans_tpu/spans/pipeline.py``'s host code
-(``host_rank_chain`` .. ``_replay_stretch``, the wide-code
+Copies of ``kmer_spans_tpu/spans/pipeline.py``'s host code
+(``host_rank_chain`` .. ``finish_spans``, the wide-code
 ``rebuild_codes_wide``, ``unpack_wide_outputs`` and ``finish_wide_spans``
-among them; its ``host_rank_mass`` is
-stats/ranks.py ``cumulative_mass``), which cannot be imported
-without JAX: that module pulls in the Pallas kernels.  Only the imports
-differ.  tests/test_torch_finish.py holds every copy equal to its
+among them; its ``host_rank_mass`` is stats/ranks.py
+``cumulative_mass``), which cannot be imported without JAX: that module
+pulls in the Pallas kernels.  They differ in the imports and in needing
+the host library (utils/native.py): every candidate stretch folds
+through spans/extract.py ``extract_spans`` (or, from packed bases, the
+library's ``replay_packed``), where the original keeps a numpy replay
+beside it.  tests/test_torch_finish.py holds every copy equal to its
 original on the same inputs.  ``finish_weight_spans`` differs in two
 places, both held by tests/test_torch_weight_pipeline.py: its pulled
 blocks and its rescan counts have names of their own (the reference
@@ -48,8 +51,8 @@ def host_rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
     so emitted span scores match the C reference bit for bit (mass/total
     differs by ~1 ulp of accumulation and was round-2 weak #4).
 
-    Fast path for large spectra (k >= 10 tables dominate the finisher on
-    weak hosts): the stable argsort runs on the narrowest unsigned dtype
+    From 2^20 entries (k >= 10) the host library's sort-free chain serves
+    it.  Below, the stable argsort runs on the narrowest unsigned dtype
     that holds max(counts) (numpy's stable integer sort is radix — passes
     scale with key width), and the sorted VALUES come from bincount +
     repeat instead of a 4^k gather.  Both transforms preserve order and
@@ -65,9 +68,7 @@ def host_rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
         # sort-free native chain (value histogram + per-value cursors) —
         # bit-identical (tests/test_torch_isolation.py), ~14x the numpy
         # argsort path at 4^12
-        nr = native.rank_chain(counts, total)
-        if nr is not None:
-            return nr
+        return native.rank_chain(counts, total)
     key = counts
     for dt in (np.uint8, np.uint16, np.uint32):
         if mx < (1 << (8 * np.dtype(dt).itemsize)):
@@ -153,8 +154,8 @@ def unpack_outputs(vec, k: int, n: int, block: int, cand_blocks: int,
     raw bases reproduces the device's code exactly).
     lazy_codes (packed_bases only): skip the eager rebuild — the dict
     carries the raw ``cand_words`` and finish_spans decodes only the
-    blocks that are actually candidates (via the native C replay when
-    available, which never materializes a codes array at all).
+    blocks that are actually candidates (the host library's packed
+    replay, which never materializes a codes array at all).
     """
     v = np.asarray(vec)
     size = 1 << (2 * k)
@@ -279,9 +280,7 @@ def finish_spans(
     # bit-identical replay scores: gather the reference's f64 rank CHAIN
     size = len(counts)
     k = (size.bit_length() - 1) // 2  # len(counts) == 4^k
-    ranks = None
-    rank_lookup = None
-    if size >= (1 << 26) and native.available():
+    if size >= (1 << 26):
         # k >= 13: a 4^k f64 chain table is 0.5-8 GB and even the
         # sort-free native chain is miss-bound filling it (3.6 s at
         # 4^13) — instead compute exact chain ranks for just the
@@ -304,11 +303,7 @@ def finish_spans(
             return ranks_u[idx]
     else:
         ranks = host_rank_chain(counts, total)
-    use_native = False
-    if codes is None:
-        use_native = native.available()
-        if not use_native:
-            codes = rebuild_codes(cand_words, k, block)
+        rank_lookup = ranks.__getitem__
 
     # assemble maximal stretches of consecutive candidate blocks
     regions = []
@@ -324,7 +319,7 @@ def finish_spans(
         rows = [pos_in_pull[b] for b in range(i, j + 1)]
         sc_rows = scored[rows]
         base_pos = i * block  # 0-based position of first assembled entry
-        if use_native:
+        if codes is None:  # packed bases: the library rebuilds the codes
             beg, end, sc = native.replay_packed(
                 cand_words[rows], sc_rows, block, k, ranks, thr,
                 min_width, min_score, base_pos)
@@ -333,25 +328,13 @@ def finish_spans(
                 for b, e, s in zip(beg, end, sc)
             )
         else:
-            c_flat = codes[rows].reshape(-1)
             sc_flat = sc_rows.reshape(-1)
-            pos_ranks = (rank_lookup(c_flat) if rank_lookup is not None
-                         else ranks[c_flat])
-            s_flat = np.where(sc_flat, pos_ranks - thr, 0.0)
-            rep = (native.replay_scores(
-                s_flat, sc_flat, min_width, min_score, base_pos)
-                if native.available() else None)
-            if rep is not None:
-                regions.extend(
-                    (seq_id, int(bv), int(ev), float(sv))
-                    for bv, ev, sv in zip(*rep))
-            else:
-                regions.extend(
-                    _replay_stretch(
-                        s_flat, sc_flat, base_pos, min_width, min_score,
-                        seq_id,
-                    )
-                )
+            s_flat = np.where(sc_flat,
+                              rank_lookup(codes[rows].reshape(-1)) - thr,
+                              0.0)
+            regions.extend(extract_spans(s_flat, sc_flat, min_width,
+                                         min_score, seq_id=seq_id,
+                                         base_pos=base_pos))
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)
 
@@ -612,23 +595,7 @@ def finish_wide_spans(
         qi = np.minimum(np.searchsorted(uniq, c_flat),
                         max(len(uniq) - 1, 0))
         s_flat = np.where(sc_flat, ranks_u[qi] - thr, 0.0)
-        base_pos = i * block
-        rep = (native.replay_scores(
-            s_flat, sc_flat, min_width, min_score, base_pos)
-            if native.available() else None)
-        if rep is not None:
-            regions.extend(
-                (seq_id, int(bv), int(ev), float(sv))
-                for bv, ev, sv in zip(*rep))
-        else:
-            regions.extend(_replay_stretch(
-                s_flat, sc_flat, base_pos, min_width, min_score, seq_id))
+        regions.extend(extract_spans(s_flat, sc_flat, min_width, min_score,
+                                     seq_id=seq_id, base_pos=i * block))
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)
-
-
-def _replay_stretch(s, scored, base_pos, min_width, min_score, seq_id):
-    """Exact f64 replay over one assembled stretch (as spans/extract.py)."""
-    regs = extract_spans(s, scored, min_width, min_score, seq_id=seq_id)
-    # shift from stretch-local 1-based coords to sequence coords
-    return [(sid, beg + base_pos, end + base_pos, sc) for sid, beg, end, sc in regs]

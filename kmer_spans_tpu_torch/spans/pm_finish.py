@@ -1,9 +1,11 @@
-"""Host finisher of the k >= 10 pm pipeline: numpy copies of the reference's.
+"""Host finisher of the k >= 10 pm pipeline: copies of the reference's.
 
-Verbatim copies of ``kmer_spans_tpu/spans/pm_pipeline.py``'s host code
+Copies of ``kmer_spans_tpu/spans/pm_pipeline.py``'s host code
 (unpack_pm_outputs, _pm_host_tables, finish_pm_spans), which cannot be
 imported without JAX: that module imports spans/pipeline.py, which pulls
-in the Pallas kernels.  Only the imports differ.  Both code widths are
+in the Pallas kernels.  They differ in the imports and in the replay:
+every candidate stretch folds through spans/extract.py
+``extract_spans`` (the host library).  Both code widths are
 decoded: narrow (10 <= k <= 15) and wide (16 <= k <= 23, two seed words a
 candidate block and the list as (hi, lo) pairs).
 tests/test_torch_pm_pipeline.py and tests/test_torch_wide.py hold every
@@ -21,10 +23,9 @@ import numpy as np
 
 from ..ops.gather import SCREEN_SCALE
 from ..stats.ranks import chain_ranks_from_mass
-from ..utils import native
+from .extract import extract_spans
 from .finish import (
     SpanPipelineResult,
-    _replay_stretch,
     compose_summaries_exact,
     rebuild_codes,
     rebuild_codes_wide,
@@ -200,16 +201,7 @@ def finish_pm_spans(
         qi = np.searchsorted(uniq_pm, np.where(sc_flat, pm_flat, 0))
         qi = np.minimum(qi, max(uniq_pm.size - 1, 0))
         s_flat = np.where(sc_flat, ranks_u[qi] - thr, 0.0)
-        base_pos = i * block
-        rep = (native.replay_scores(
-            s_flat, sc_flat, min_width, min_score, base_pos)
-            if native.available() else None)
-        if rep is not None:
-            regions.extend(
-                (seq_id, int(bv), int(ev), float(sv))
-                for bv, ev, sv in zip(*rep))
-        else:
-            regions.extend(_replay_stretch(
-                s_flat, sc_flat, base_pos, min_width, min_score, seq_id))
+        regions.extend(extract_spans(s_flat, sc_flat, min_width, min_score,
+                                     seq_id=seq_id, base_pos=i * block))
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)

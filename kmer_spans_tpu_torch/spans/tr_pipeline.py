@@ -48,11 +48,13 @@ elsewhere.  runstats' positivity max(x + A, B) > 0, the candidate mask
 and the regions are equal: with x <= 2^27, x + A < 0 wherever A is below
 SCREEN_NEG // 2, and B >= 0.
 
-The host replay (replay_tr_segment) is control-flow faithful to the
-reference, including its quirks: reg_begin recorded one past a positive
-seed, unconditional jump-back to the max on every zero crossing, terminal
-emission without rescan, and (given the sequence's length) no scoring
-from a block whose seed lands within 2 bytes of the sequence end.  The
+The host replay (the host library's ``replay_tr``: the JAX package's
+replay_tr_segment in C, with the oracle's end-of-sequence check) is
+control-flow faithful to the reference, including its quirks: reg_begin
+recorded one past a positive seed, unconditional jump-back to the max on
+every zero crossing, terminal emission without rescan, and (given the
+sequence's length) no scoring from a block whose seed lands within 2
+bytes of the sequence end.  The
 last changes regions only at min_region_length == 0; the reference's
 device path leaves it out, so there the port is held against the oracle.
 
@@ -254,95 +256,6 @@ def make_tr_pipeline(k: int, block: int = 8192, cand_blocks: int = 128,
     return TrPipeline(k, block, cand_blocks, device)
 
 
-def replay_tr_segment(
-    ks: np.ndarray,
-    ts: np.ndarray,
-    seed: np.ndarray,
-    ext: np.ndarray,
-    base_pos: int,
-    min_len: int,
-    seq_id: int,
-    seq_len: int | None = None,
-):
-    """Reference-exact sequential replay of the tr_lr caller over arrays.
-
-    ks/ts: f64 per-position seed/transition scores (end-position conv.);
-    seed/ext: masks.  base_pos: 0-based global position of index 0.
-    seq_len: the sequence's length; a seed whose k-mer ends within 2
-    bytes of it ends the replay unscored, as in the reference (:341)
-    and the oracle (None: no such check, as in the reference's device
-    path).
-    Returns regions as (seq_id, beg, end, score), 1-based last-base coords.
-    """
-    n = ks.shape[0]
-    regions = []
-    in_block = False  # actively scanning a block (or mid-block stretch)
-    score = last = max_score = 0.0
-    max_pos = reg_begin = 0
-
-    def _terminal():
-        if in_block and max_score > 0.0 and max_pos - reg_begin >= min_len:
-            regions.append((seq_id, 1 + reg_begin, 1 + max_pos, max_score))
-
-    j = 0
-    while j < n:
-        if seed[j]:
-            if seq_len is not None and base_pos + j >= seq_len - 2:
-                in_block = False  # the reference's end-of-sequence abandon
-                break
-            score = max(float(ks[j]), 0.0)
-            last = score
-            max_score = 0.0
-            max_pos = reg_begin = 0
-            if score > 0.0:
-                max_score = score
-                # QUIRK: reference records i = one past the seed's last base
-                max_pos = base_pos + j + 1
-                reg_begin = base_pos + j + 1
-            in_block = True
-            j += 1
-        elif ext[j]:
-            if not in_block:
-                # stretch begins mid-block: the scan state entering a
-                # candidate chain is S = 0 (excursion independence), so
-                # extension mode with a fresh state is exact
-                score = last = max_score = 0.0
-                max_pos = reg_begin = 0
-                in_block = True
-            pos0 = base_pos + j
-            score = last + float(ts[j])
-            if score > max_score:
-                max_score = score
-                max_pos = pos0
-            if score < 0.0:
-                score = 0.0
-            if last == 0.0 and score > 0.0:
-                max_score = score
-                max_pos = pos0
-                reg_begin = pos0
-            if score == 0.0 and last > 0.0:
-                if max_pos - reg_begin >= min_len:
-                    regions.append(
-                        (seq_id, 1 + reg_begin, 1 + max_pos, max_score))
-                # unconditional jump-back: resume at max_pos + 1
-                jmp = max_pos - base_pos
-                score = last = max_score = 0.0
-                reg_begin = max_pos
-                max_pos = 0
-                j = jmp + 1
-                continue
-            last = score
-            j += 1
-        else:
-            _terminal()  # N gap / warm-up closes the block
-            in_block = False
-            score = last = max_score = 0.0
-            max_pos = reg_begin = 0
-            j += 1
-    _terminal()
-    return regions
-
-
 def _tr_candidacy(lead, mrun, tail, x_in, min_len, nb, block):
     """Exact candidate-block mask from per-block positive-run stats.
 
@@ -417,12 +330,10 @@ def _pull_batches(pipe, nbases_dev, blocks, halo=None):
 def _replay_stretches(cand, pulled, ks_table, ts_table, block, min_len,
                       seq_id, seq_len=None):
     """Replay each maximal stretch of candidate blocks from the pulled
-    codes and the f64 tables: in the host library (utils/native.py
-    replay_tr, the C form of replay_tr_segment) where it loads, else in
-    replay_tr_segment."""
+    codes and the f64 tables in the host library (utils/native.py
+    replay_tr)."""
     ks64 = np.asarray(ks_table, np.float64)
     ts64 = np.asarray(ts_table, np.float64)
-    use_native = native.available()
     nb = cand.shape[0]
     regions = []
     i = 0
@@ -436,16 +347,11 @@ def _replay_stretches(cand, pulled, ks_table, ts_table, block, min_len,
         codes, seed, ext = (np.concatenate([pulled[b][f]
                                             for b in range(i, j + 1)])
                             for f in range(3))
-        if use_native:
-            regions.extend(
-                (seq_id, int(bv), int(ev), float(sv))
-                for bv, ev, sv in zip(*native.replay_tr(
-                    codes, seed, ext, ks64, ts64, i * block, min_len,
-                    seq_len)))
-        else:
-            regions.extend(replay_tr_segment(
-                ks64[codes], ts64[codes], seed, ext, i * block, min_len,
-                seq_id, seq_len))
+        regions.extend(
+            (seq_id, int(bv), int(ev), float(sv))
+            for bv, ev, sv in zip(*native.replay_tr(
+                codes, seed, ext, ks64, ts64, i * block, min_len,
+                seq_len)))
         i = j + 1
     return regions
 
@@ -481,7 +387,7 @@ def finish_tr_spans(
     its device-resident inputs.  The candidate blocks are pulled after
     candidacy (pipe.pull) in batches of pipe.cand_blocks, as many as they
     need: there is no fallback.  seq_len: the sequence's length, for the
-    reference's end-of-sequence quirk (replay_tr_segment).
+    reference's end-of-sequence quirk (see the module's doc).
 
     ks_table/ts_table: the ORIGINAL f64 score tables — candidates replay
     from host f64 gathers of their pulled codes, so emitted positions and

@@ -74,28 +74,43 @@ def chain_ranks_from_mass(
     value_hist may also be a SPARSE (v_vals, n_codes) tuple: distinct
     count values ascending plus their code multiplicities (the native
     ks_mass_of_codes output).
+
+    From 2^22 terms the host library's streaming fold serves it
+    (utils/native.py chain_from_hist, bit-identical); below, the chunked
+    numpy fold (``_chain_fold``).
     """
     pm = np.asarray(pm, dtype=np.int64)
+    v_vals, h = _value_groups(value_hist)
+    if int(h.sum()) >= (1 << 22):
+        # the C streaming fold: one pass, where the chunked numpy fold is
+        # seconds at 100M terms
+        return native.chain_from_hist(
+            v_vals, h, float(total), pm.reshape(-1)).reshape(pm.shape)
+    return _chain_fold(pm, v_vals, h, total, chunk)
+
+
+def _value_groups(value_hist):
+    """(count values present, ascending; codes a value) from either form
+    of ``value_hist``."""
     if isinstance(value_hist, tuple):
         v_vals = np.asarray(value_hist[0], dtype=np.int64)
         h = np.asarray(value_hist[1], dtype=np.int64)
         keep = v_vals > 0
-        v_vals, h = v_vals[keep], h[keep]
-        gmass = v_vals * h
-    else:
-        value_hist = np.asarray(value_hist, dtype=np.int64)
-        v_vals = np.nonzero(value_hist[1:])[0] + 1  # values present, asc
-        gmass = value_hist[v_vals]
-        h = gmass // v_vals  # codes per group
-        if (h * v_vals != gmass).any():
-            raise ValueError("value_hist is not a mass histogram")
-    if int(h.sum()) >= (1 << 22):
-        # the C streaming fold (one pass; the chunked numpy fold below is
-        # seconds at 100M terms), bit-identical
-        out = native.chain_from_hist(
-            v_vals, h, float(total), pm.reshape(-1))
-        if out is not None:
-            return out.reshape(pm.shape)
+        return v_vals[keep], h[keep]
+    value_hist = np.asarray(value_hist, dtype=np.int64)
+    v_vals = np.nonzero(value_hist[1:])[0] + 1  # values present, asc
+    h = value_hist[v_vals] // v_vals  # codes per group
+    if (h * v_vals != value_hist[v_vals]).any():
+        raise ValueError("value_hist is not a mass histogram")
+    return v_vals, h
+
+
+def _chain_fold(pm, v_vals, h, total, chunk=1 << 26):
+    """``chain_ranks_from_mass`` by the chunked numpy fold at any size:
+    the fold streamed in chunks of terms, each query answered at its
+    prefix.  The oracle's ``SparseRanks`` takes it alone, so that the
+    oracle never loads the host library."""
+    gmass = v_vals * h
     below = np.concatenate([[0], np.cumsum(gmass)[:-1]])  # mass before group
     nnz_before = np.concatenate([[0], np.cumsum(h)[:-1]])
     g = np.searchsorted(below, pm, side="right") - 1
@@ -182,7 +197,7 @@ class SparseRanks:
         self.ucodes = np.asarray(ucodes, dtype=np.int64)
         pm, vhist, total = sparse_mass(self.ucodes, ucounts)
         self.total = total
-        self.ranks_u = chain_ranks_from_mass(pm, vhist, total)
+        self.ranks_u = _chain_fold(pm, *_value_groups(vhist), total)
 
     def __getitem__(self, code):
         i = int(np.searchsorted(self.ucodes, code))

@@ -124,8 +124,6 @@ _recorder: Recorder | None = None
 COUNTERS = (
     ("parallel.device", "staged_bytes"),
     ("spans.finish", "pulled_blocks"),
-    ("spans.extract", "replay_ranges"),
-    ("spans.extract", "confirm_walks"),
     ("spans.extract", "replays"),
     ("spans.extract", "replay_emits"),
     ("spans.extract", "native_folds"),

@@ -4,11 +4,11 @@ The library is built at first use with the system C++ compiler ($CXX, else
 ``c++`` or ``g++`` on PATH) into ``kmer_spans_tpu_torch/build/``, under a
 name made from a hash of the source and flags.  The compiler writes a
 per-process temporary file that ``os.replace`` moves into place, so
-concurrent processes never load a half-written library.  A failed build is
-not remembered: the next call tries again.  Where there is no compiler,
-``available()`` is False and every entry point returns None (or, for
-``host_spectrum``, takes its numpy path), so the callers' numpy paths
-run; the api's ``backend="native"`` raises there instead.
+concurrent processes never load a half-written library.  The device
+paths need the library: where it does not build or load, every entry
+point raises RuntimeError carrying the compiler's message.  A failed
+build is not remembered: the next call tries again.  The api's
+``backend="host"`` (the sequential oracle) never loads it.
 
 Copied from ``kmer_spans_tpu/utils/native.py`` for the entry points the
 port calls: same arguments, same results (``replay_scores`` adds two
@@ -103,14 +103,20 @@ def build() -> Path:
     return out
 
 
-def _load():
+def _load() -> ctypes.CDLL:
+    """The library, built first where it is not there yet.
+
+    Raises RuntimeError where it does not build or load; the next call
+    tries again.
+    """
     global _lib
     with _lock:
         if _lib is None:
             try:
                 lib = ctypes.CDLL(str(build()))
-            except (OSError, RuntimeError, subprocess.SubprocessError):
-                return None  # the numpy paths; the next call tries again
+            except (OSError, subprocess.SubprocessError) as e:
+                raise RuntimeError(
+                    f"the host library did not build or load: {e}") from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
@@ -120,25 +126,26 @@ def _load():
 
 
 def available() -> bool:
-    return _load() is not None
+    """Whether the library builds and loads here."""
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
 
 
-def pack_nbases(raw: np.ndarray) -> np.ndarray | None:
-    """bytes -> nbases (2-bit values, N == 4); None if native unavailable."""
+def pack_nbases(raw: np.ndarray) -> np.ndarray:
+    """bytes -> nbases (2-bit values, N == 4)."""
     lib = _load()
-    if lib is None:
-        return None
     raw = np.ascontiguousarray(raw, dtype=np.uint8)
     out = np.empty(raw.shape[0], dtype=np.uint8)
     lib.ks_pack(raw.ctypes.data, raw.shape[0], out.ctypes.data)
     return out
 
 
-def count_spectrum(nbases: np.ndarray, k: int) -> tuple[np.ndarray, int] | None:
-    """Native sequential spectrum count; None if unavailable."""
+def count_spectrum(nbases: np.ndarray, k: int) -> tuple[np.ndarray, int]:
+    """Native sequential spectrum count."""
     lib = _load()
-    if lib is None:
-        return None
     nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
     counts = np.zeros(1 << (2 * k), dtype=np.int32)
     n = lib.ks_count(nbases.ctypes.data, nbases.shape[0], k, counts.ctypes.data)
@@ -148,10 +155,9 @@ def count_spectrum(nbases: np.ndarray, k: int) -> tuple[np.ndarray, int] | None:
 def host_spectrum(
     nbases: np.ndarray, k: int, threads: int = 0,
 ) -> tuple[np.ndarray, int]:
-    """Host spectrum from nbases (N == 4): native C when available,
-    vectorized numpy otherwise.  The k >= 10 span pipelines replay
-    candidates from this recount instead of pulling 4^k device words
-    (spans/pipeline.py packed_counts=False).
+    """Host spectrum from nbases (N == 4).  The k >= 10 span pipelines
+    replay candidates from this recount instead of pulling 4^k device
+    words (spans/pipeline.py packed_counts=False).
 
     threads=0 picks min(os.cpu_count(), 4); >1 uses the code-space-
     partitioned multithreaded native counter (shared table, disjoint
@@ -159,35 +165,26 @@ def host_spectrum(
     4^k table is 4 GB at k=15; int64 would double it), int64 below.
     """
     lib = _load()
-    if lib is not None:
-        if threads == 0:
-            threads = min(os.cpu_count() or 1, 4)
-        nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
-        counts = np.zeros(1 << (2 * k), dtype=np.int32)
-        if 10 <= k <= 14 and nbases.shape[0] >= (1 << (2 * k - 3)):
-            # cache-staged radix counter: per-bucket write-combining into
-            # cache-resident table slices (atomic adds).  Not for k = 15,
-            # where each count touches a unique line, and only when the
-            # genome is big enough for slices to get several hits
-            # (n >= 4^k / 8)
-            n = lib.ks_count_radix(nbases.ctypes.data, nbases.shape[0],
-                                   k, counts.ctypes.data, threads)
-        else:
-            n = lib.ks_count_mt(nbases.ctypes.data, nbases.shape[0], k,
-                                counts.ctypes.data, threads)
-        if k < 13:
-            counts = counts.astype(np.int64)
-        # k >= 13 stays int32: the table is 0.25-4 GB, and every native
-        # consumer (rank_chain, mass_of_codes, replay) takes int32
-        return counts, int(n)
-    from ..encoding import PackedSeq, kmer_codes_np
-
-    nbases = np.asarray(nbases, dtype=np.uint8)
-    p = PackedSeq(bases=nbases & 3, valid=nbases < 4)
-    codes, kv = kmer_codes_np(p, k)
-    counts = np.bincount(
-        codes[kv], minlength=1 << (2 * k)).astype(np.int64)
-    return counts, int(kv.sum())
+    if threads == 0:
+        threads = min(os.cpu_count() or 1, 4)
+    nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
+    counts = np.zeros(1 << (2 * k), dtype=np.int32)
+    if 10 <= k <= 14 and nbases.shape[0] >= (1 << (2 * k - 3)):
+        # cache-staged radix counter: per-bucket write-combining into
+        # cache-resident table slices (atomic adds).  Not for k = 15,
+        # where each count touches a unique line, and only when the
+        # genome is big enough for slices to get several hits
+        # (n >= 4^k / 8)
+        n = lib.ks_count_radix(nbases.ctypes.data, nbases.shape[0],
+                               k, counts.ctypes.data, threads)
+    else:
+        n = lib.ks_count_mt(nbases.ctypes.data, nbases.shape[0], k,
+                            counts.ctypes.data, threads)
+    if k < 13:
+        counts = counts.astype(np.int64)
+    # k >= 13 stays int32: the table is 0.25-4 GB, and every native
+    # consumer (rank_chain, mass_of_codes, replay) takes int32
+    return counts, int(n)
 
 
 def host_spectrum_sparse(
@@ -195,11 +192,8 @@ def host_spectrum_sparse(
 ) -> tuple[np.ndarray, np.ndarray, int]:
     """Sparse host spectrum for wide k (16..31): distinct int64 codes and
     their counts, ascending (threads partition the code space and sort
-    independently; 0 takes up to 8).  Returns (ucodes, ucounts, n_words),
-    or None if native is unavailable."""
+    independently; 0 takes up to 8).  Returns (ucodes, ucounts, n_words)."""
     lib = _load()
-    if lib is None:
-        return None
     nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
     if threads == 0:
         threads = min(os.cpu_count() or 1, 8)
@@ -215,14 +209,11 @@ def host_spectrum_sparse(
     return ucodes[:nd].copy(), ucounts[:nd].copy(), int(nw[0])
 
 
-def chain_from_hist(v_vals, n_codes, total, pm) -> np.ndarray | None:
+def chain_from_hist(v_vals, n_codes, total, pm) -> np.ndarray:
     """Exact f64 chain ranks for mass values pm given the sparse value
     histogram: the C form of stats/ranks.py chain_ranks_from_mass (one
-    streaming fold).  None if native is unavailable; raises on an invalid
-    pm."""
+    streaming fold).  Raises ValueError on an invalid pm."""
     lib = _load()
-    if lib is None:
-        return None
     v_vals = np.ascontiguousarray(v_vals, dtype=np.int64)
     n_codes = np.ascontiguousarray(n_codes, dtype=np.int64)
     pm = np.ascontiguousarray(pm, dtype=np.int64)
@@ -235,13 +226,11 @@ def chain_from_hist(v_vals, n_codes, total, pm) -> np.ndarray | None:
     return out
 
 
-def rank_chain(counts: np.ndarray, total: int) -> np.ndarray | None:
+def rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
     """The reference's exact f64 rank chain over a dense spectrum via the
     sort-free native kernel (value histogram + per-value cursors).  Counts
-    must fit int32.  None if the native library is unavailable."""
+    must fit int32."""
     lib = _load()
-    if lib is None:
-        return None
     counts = np.ascontiguousarray(counts, dtype=np.int32)
     ranks = np.empty(counts.shape[0], dtype=np.float64)
     lib.ks_rank_chain(counts.ctypes.data, counts.shape[0], float(total),
@@ -255,9 +244,9 @@ def replay_scores(
     candidates: np.ndarray | None = None,
 ):
     """Reference-exact replay from precomputed per-position f64 scores:
-    the reference's sequential fold over each run of ``scored`` (the
-    k >= 13 candidate-only rank path, the pm, wide and sharded finishers,
-    and spans/extract.py extract_spans); None if unavailable.
+    the reference's sequential fold over each run of ``scored``.  Its one
+    caller is spans/extract.py extract_spans, through which every host
+    finisher of the device paths folds.
 
     Returns (beg, end, score) arrays in 1-based last-base coordinates
     offset by ``base_pos``.  Two optional outputs, both added into:
@@ -269,8 +258,6 @@ def replay_scores(
     spans at least min_width + 1 positions, so one fold always suffices.
     """
     lib = _load()
-    if lib is None:
-        return None
     s = np.ascontiguousarray(s, dtype=np.float64)
     scored = np.ascontiguousarray(scored)
     scored = scored.view(np.uint8) if scored.dtype == np.bool_ else \
@@ -297,15 +284,14 @@ def replay_scores(
 
 def replay_tr(codes, seed, ext, ks, ts, base_pos: int, min_len: int,
               seq_len: int | None = None):
-    """The transition-score replay of one stretch (spans/tr_pipeline.py
-    replay_tr_segment, with ks/ts the 4^k f64 tables gathered at each
-    position's code); None if unavailable.
+    """The transition-score replay of one stretch: the C form of the JAX
+    package's ``kmer_spans_tpu/spans/tr_pipeline.py replay_tr_segment``,
+    with ks/ts the 4^k f64 tables gathered at each position's code, and
+    given ``seq_len`` the oracle's end-of-sequence check.
 
     Returns (beg, end, score) arrays in global 1-based last-base coords.
     """
     lib = _load()
-    if lib is None:
-        return None
     codes = np.ascontiguousarray(codes, dtype=np.int32)
     seed = np.ascontiguousarray(seed, dtype=np.uint8)
     ext = np.ascontiguousarray(ext, dtype=np.uint8)
@@ -330,12 +316,10 @@ def mass_of_codes(counts: np.ndarray, qcodes: np.ndarray):
     """Exact integer mass + sparse value histogram for sorted unique
     query codes (the k >= 13 replay path: no 4^k f64 rank table).
 
-    Returns (pm int64 [nq], v_vals int64 asc, v_ncodes int64) or None if
-    native is unavailable.  counts must be int32-compatible.
+    Returns (pm int64 [nq], v_vals int64 asc, v_ncodes int64).  counts
+    must be int32-compatible.
     """
     lib = _load()
-    if lib is None:
-        return None
     counts = np.ascontiguousarray(counts, dtype=np.int32)
     q = np.ascontiguousarray(qcodes, dtype=np.int64)
     pm = np.empty(q.shape[0], dtype=np.int64)
@@ -364,8 +348,7 @@ def replay_packed(
     base_pos: int,
 ):
     """Reference-exact candidate-stretch replay from the device's packed
-    2-bit-bases payload (spans/pipeline.py packed_bases format); None if
-    the native library is unavailable.
+    2-bit-bases payload (spans/pipeline.py packed_bases format).
 
     cand_words: [rows, 1 + block/16] uint32 (seed code + base words) for
     CONSECUTIVE candidate blocks; scored: [rows, block] bool; base_pos:
@@ -373,8 +356,6 @@ def replay_packed(
     Returns (beg, end, score) arrays in global 1-based last-base coords.
     """
     lib = _load()
-    if lib is None:
-        return None
     cand_words = np.ascontiguousarray(cand_words, dtype=np.uint32)
     scored = np.ascontiguousarray(scored, dtype=np.uint8)
     rows = cand_words.shape[0]
@@ -404,15 +385,13 @@ def find_spans(
     min_score: float,
     want_scan_counts: bool = False,
 ):
-    """Native sequential span caller (reference-exact); None if unavailable.
+    """Native sequential span caller (reference-exact).
 
     Returns (beg, end, score arrays, scan_counts int64 [4^k] or None).
     The region buffers start at 1024 and grow to the count the caller
     reports, with the call repeated.
     """
     lib = _load()
-    if lib is None:
-        return None
     nbases = np.ascontiguousarray(nbases, dtype=np.uint8)
     weights = np.ascontiguousarray(weights, dtype=np.float64)
     sc = np.zeros(1 << (2 * k), dtype=np.int64) if want_scan_counts else None

@@ -4,7 +4,9 @@ device="cpu" (the kernels' plain versions): integer arrays exact, f64
 scores ==.  The cases of tests/test_api.py, and the backend rules:
 "jax" and unknown names raise ValueError, "native" without its library
 raises RuntimeError (and runs nothing else), "auto" with device="cuda"
-and no card raises, and "host"/"native" never touch the card."""
+and no card raises, "host"/"native" never touch the card, the device
+path raises RuntimeError where the host library does not build, and
+"host" answers without loading it."""
 
 import dataclasses
 
@@ -316,7 +318,11 @@ def test_native_without_the_library_raises(fn, monkeypatch):
     def never(*a, **kw):
         raise AssertionError("the host oracle ran")
 
-    monkeypatch.setattr(native, "_load", lambda: None)
+    def no_library():
+        raise RuntimeError("the host library did not build or load")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load", no_library)
     for name in ("count_spectrum", "count_spectrum_sparse", "find_regions",
                  "find_tr_regions", "windowed_distributions"):
         monkeypatch.setattr(oracle, name, never)
@@ -343,3 +349,113 @@ def test_cpu_backends_never_touch_the_card(fn, backend, monkeypatch):
                  "device_count"):
         monkeypatch.setattr(torch.cuda, name, never)
     _calls(backend)[fn]()  # device="cuda", the default, is not used
+
+
+# ------------------------------------------------ the host library's place
+
+def _island_seq():
+    """10 kb of the golden genome around its first repeat island."""
+    return oracle.golden_genome()[15_000:25_000]
+
+
+def _folding_calls(device):
+    """One call of each public call whose device path folds its
+    candidates on the host, on a sequence with candidates."""
+    from kmer_spans_tpu_torch.encoding import pack
+    from kmer_spans_tpu_torch.parallel.stream import StreamingSpanPipeline
+
+    seq = _island_seq()
+    kms = api.kmer_seq(2)
+    ks = [2.0 if km == "CG" else -1.0 for km in kms]
+    ts = [2.0 if km == "CG" else -0.5 for km in kms]
+    counts, n = oracle.count_spectrum(seq, 8)
+
+    def stream():
+        p = pack(seq)
+        nb = np.where(p.valid, p.bases, 4).astype(np.uint8)
+        pipe = StreamingSpanPipeline(8, chunk_bases=4096, block=512,
+                                     cand_blocks=8, device=device)
+        return pipe.run(lambda: (nb[i:i + 4096]
+                                 for i in range(0, nb.size, 4096)),
+                        0.75, 100, 20.0)
+
+    return {
+        "kmer_low_comp_regions_exact": lambda: api.kmer_low_comp_regions(
+            seq, 8, 100, 20.0, device=device),
+        "kmer_low_comp_regions_fast": lambda: api.kmer_low_comp_regions(
+            seq, 8, 100, 20.0, mode="fast", device=device),
+        "kmer_regions": lambda: api.kmer_regions(
+            seq, 8, oracle.weighted_ranks(counts, n) - 0.75, 100, 20.0,
+            device=device),
+        "kmer_spans": lambda: api.kmer_spans(seq, 8, device=device),
+        "lr_regions": lambda: api.lr_regions(
+            "AT" * 300 + "CG" * 200 + "AT" * 300, (2, 20), kms, ks, ts,
+            device=device),
+        "kmer_wide_regions": lambda: api.kmer_wide_regions(
+            seq, 17, 100, 20.0, device=device),
+        "stream": stream,
+    }
+
+
+def _regions_of(res):
+    got = res.regions
+    return got.tolist() if isinstance(got, np.ndarray) else got
+
+
+@pytest.mark.parametrize("fn", sorted(_folding_calls("cpu")))
+def test_device_path_raises_without_the_library(fn, monkeypatch, tmp_path):
+    """The device path folds on the host in the library and has no numpy
+    fold beside it: with the library each call finds regions; where the
+    library does not build (no compiler), it raises RuntimeError with
+    the compiler's failure."""
+    assert _regions_of(_folding_calls("cpu")[fn]())
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        _folding_calls("cpu")[fn]()
+
+
+def _host_calls(backend, tmp_path):
+    """The api's calls under a CPU backend at sizes where the device
+    path's host code would take the library: k = 10 (a 2^20-entry rank
+    chain) and wide k (the sparse chain)."""
+    seq = _island_seq()
+    fa = tmp_path / "g.fa"
+    write_fasta(fa, [("g", seq)])
+    kms = api.kmer_seq(2)
+    zeros = np.zeros(16)
+    return {
+        "kmer_counts": lambda: api.kmer_counts(seq, 10, backend=backend),
+        "kmer_regions": lambda: api.kmer_regions(
+            seq, 2, np.arange(16) / 8.0 - 1.0, 5, 1.0, backend=backend),
+        "kmer_low_comp_regions": lambda: api.kmer_low_comp_regions(
+            seq, 10, 100, 20.0, backend=backend),
+        "kmer_spans": lambda: api.kmer_spans(seq, 10, backend=backend),
+        "kmer_wide_regions": lambda: api.kmer_wide_regions(
+            seq, 17, 100, 20.0, backend=backend),
+        "lr_regions": lambda: api.lr_regions(seq, (2, 20), kms, zeros + 1.0,
+                                             zeros - 0.5, backend=backend),
+        "window_kmer_dist": lambda: api.window_kmer_dist(
+            seq, ["CG", "AT"], 200, backend=backend),
+        "kmers_to_file": lambda: api.kmers_to_file(
+            str(fa), str(tmp_path / "k_"), 4, backend=backend),
+    }
+
+
+@pytest.mark.parametrize("fn", sorted(_calls("host")))
+def test_host_answers_without_the_library(fn, monkeypatch, tmp_path):
+    """backend="host" is the route without a C++ compiler: it never loads
+    the host library, and answers what "native" answers."""
+    want = _host_calls("native", tmp_path)[fn]()
+
+    def never():
+        raise AssertionError("the host library was loaded")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load", never)
+    got = _host_calls("host", tmp_path)[fn]()
+    if isinstance(want, tuple):
+        assert got == want
+    else:
+        _same(got, want)

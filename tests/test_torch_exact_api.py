@@ -221,17 +221,25 @@ def test_kmer_seq_equals_jax():
 @pytest.mark.parametrize("path", ["native", "numpy"])
 def test_rank_route_is_weighted_ranks_bit_for_bit(path, monkeypatch):
     """The port's RankScoring takes its weights from host_rank_chain; at
-    4^10 entries (2^20, where the host library serves the chain) and with
-    the numpy path alike, they are weighted_ranks bit for bit."""
+    4^10 entries (2^20, where the host library serves the chain) they
+    are weighted_ranks bit for bit, and so are the host backend's, which
+    take the oracle's numpy chain and must not load the library."""
     rng = np.random.default_rng(10)
     counts = rng.poisson(0.3, 1 << 20).astype(np.int64)
     counts[rng.integers(0, 1 << 20, 40)] = rng.integers(1000, 50_000, 40)
     total = float(counts.sum())
     if path == "numpy":
-        monkeypatch.setattr(native, "_load", lambda: None)
+        def never():
+            raise AssertionError("the host library was loaded")
+
+        monkeypatch.setattr(native, "_load", never)
     else:
         assert native.available()
-    got = api.RankScoring(counts, total, 0.75)
+    if path == "native":
+        got = api.RankScoring(counts, total, 0.75)
+    else:
+        got = api._rank_scoring(api.KmerCountResult(10, total, counts), 0.75,
+                                "host")
     want = ref_api.RankScoring(counts, total, 0.75)
     assert got.threshold == want.threshold
     assert np.array_equal(got.weights.view(np.int64),

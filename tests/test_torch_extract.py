@@ -1,15 +1,18 @@
-"""The port's host span replay (kmer_spans_tpu_torch/spans/extract.py)
-on scores that tie: decimal tables, whose sums return to 0 exactly in the
-reals, and in f64 to 0 or to a few ulps above it.
+"""The port's host span replay (kmer_spans_tpu_torch/spans/extract.py,
+the host library's sequential fold) on scores that tie: decimal tables,
+whose sums return to 0 exactly in the reals, and in f64 to 0 or to a few
+ulps above it.
 
-The vectorized screen's zeros are differences of prefix sums; they round
+A vectorized screen's zeros are differences of prefix sums; they round
 otherwise than the reference's clamped fold S_i = max(S_{i-1} + s_i, 0),
-added one position at a time.  The replay confirms them with the fold's
-own sums, so its regions (beg/end exact, f64 scores ==) and scan counts
-(rescans included) equal a sequential loop over the same scores, the
-host oracle (backend="host") and the host library (backend="native").
-The JAX package's device path keeps the screen's rounding (its
-spans/extract.py) and departs from the oracle on two of these inputs."""
+added one position at a time.  The fold adds one position at a time, so
+its regions (beg/end exact, f64 scores ==), scan counts (rescans
+included) and counts of candidate excursions equal the port's oracle
+over the same scores (oracle._scan_segment_once, a position's code its
+index), the host oracle (backend="host") and the host library's caller
+(backend="native").  The JAX package's device path keeps the screen's
+rounding (its spans/extract.py) and departs from the oracle on two of
+these inputs."""
 
 import numpy as np
 import pytest
@@ -17,10 +20,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from kmer_spans_tpu import api as ref_api
-from kmer_spans_tpu_torch import api
-from kmer_spans_tpu_torch.parallel import stream
+from kmer_spans_tpu.spans import extract as ref_extract
+from kmer_spans_tpu_torch import api, oracle
 from kmer_spans_tpu_torch.spans import extract
-from kmer_spans_tpu_torch.utils import native
 
 #: A: 0.1 + 0.2 - 0.3 stays 5.55e-17 above 0 in the fold after the -1;
 #: the screen's prefix difference is 0 there
@@ -37,60 +39,68 @@ API_B = (["ACTCC" + "C" * 300 + "T"], [-0.1, 0.4, -0.4, 0.3],
 
 
 def _fold_spans(s, pos_offset, min_width, min_score, visits=None):
-    """The reference's scan over precomputed scores, one position at a
-    time (oracle._scan_segment_once's loop): clamp at 0, first argmax,
-    emit and jump back to max_pos + 1 on a close or at the end.  Returns
-    the regions; ``visits`` (len(s)) counts each position's scans."""
-    s = np.asarray(s, np.float64).tolist()
-    n = len(s)
+    """The port's oracle over precomputed scores: its scan loop
+    (oracle._scan_segment_once: clamp at 0, first argmax, emit and jump
+    back to max_pos + 1 on a close or at the end) with each position's
+    code its index and the scores as the weights.  Returns (the regions,
+    the candidate excursions: those whose last positive position is at
+    least min_width past their first and whose S reaches min_score);
+    ``visits`` (len(s)) counts each position's scans."""
+    s = np.asarray(s, np.float64)
+    n = s.shape[0]
+    sc = np.zeros(n, np.int64) if visits is None else visits
     regions = []
     start = 0
-    while True:
-        score = last = max_score = 0.0
-        beg = max_pos = 0
-        jump = None
-        j = start
-        while j < n:
-            if visits is not None:
-                visits[j] += 1
-            score = last + s[j]
-            if score < 0.0:
-                score = 0.0
-            pos1 = pos_offset + j
-            if last == 0.0 and score > 0.0:
-                beg = max_pos = pos1
-                max_score = score
-            if score == 0.0 and last > 0.0:
-                if max_pos - beg >= min_width and max_score >= min_score:
-                    regions.append((beg, max_pos, max_score))
-                    jump = max_pos + 1 - pos_offset
-                    break
-                max_score = 0.0
-                max_pos = pos1
-            if score > max_score:
-                max_score = score
-                max_pos = pos1
-            last = score
-            j += 1
-        if jump is None and score > 0.0 and max_pos - beg >= min_width \
-                and max_score >= min_score:
-            regions.append((beg, max_pos, max_score))
-            jump = max_pos + 1 - pos_offset
+    while start is not None and start < n:
+        start = oracle._scan_segment_once(
+            np.arange(n), start, n, pos_offset - 1, 0, min_width, min_score,
+            s, -1, 0.0, regions, sc)
+    return [r[1:] for r in regions], _candidates(s, min_width, min_score)
+
+
+def _candidates(s, min_width, min_score):
+    """The candidate excursions of the scan over ``s`` (rescans
+    included), counted from the oracle's regions: each excursion from a
+    position after the last emission's end."""
+    count = 0
+    start = 0
+    n = s.shape[0]
+    while start < n:
+        score, beg, top, jump = 0.0, None, 0.0, None
+        for j in range(start, n + 1):
+            score = 0.0 if j == n else max(score + s[j], 0.0)
+            if beg is None:
+                if score > 0.0:
+                    beg, top, arg = j, score, j
+                continue
+            if score > top:
+                top, arg = score, j
+            if score == 0.0:  # closed at j (or the end)
+                if j - 1 - beg >= min_width and top >= min_score:
+                    count += 1
+                    if arg - beg >= min_width:  # emitted: rescan from arg+1
+                        jump = arg + 1
+                        break
+                beg = None
         if jump is None:
-            return regions
+            return count
         start = jump
+    return count
 
 
 def _fold_extract(s, scored, min_width, min_score):
-    """_fold_spans over each scored stretch: extract_spans's regions and
-    per-position scan counts."""
+    """_fold_spans over each scored stretch: extract_spans's regions,
+    per-position scan counts and candidate excursions."""
     visits = np.zeros(s.shape[0], np.int64)
     regions = []
+    candidates = 0
     edges = np.flatnonzero(np.diff(np.concatenate(([0], scored, [0]))))
     for a, b in zip(edges[0::2], edges[1::2]):
-        regions += [(0, beg, end, sc) for beg, end, sc in _fold_spans(
-            s[a:b], a + 1, min_width, min_score, visits[a:b])]
-    return regions, visits
+        got, c = _fold_spans(s[a:b], a + 1, min_width, min_score,
+                             visits[a:b])
+        regions += [(0, beg, end, sc) for beg, end, sc in got]
+        candidates += c
+    return regions, visits, candidates
 
 
 def _regions(res):
@@ -106,19 +116,23 @@ def _regions(res):
 ], ids=["a_region_moves", "b_region_lost", "c_walk_to_the_end"])
 def test_tied_scores_equal_the_sequential_fold(scores, min_width, min_score,
                                                want):
-    """A: the screen cuts one excursion in two at a zero the fold does
-    not reach (the unrepaired replay started at 5).  B: the screen joins
-    two at a zero the fold reaches; the first fails, the second passes
-    (the unrepaired replay skipped it).  C: the fold reaches 0 at 2 and
-    at the last position, where the screen stays above 0 throughout: the
-    walk that confirms them ends with the segment."""
+    """A: a screen cuts one excursion in two at a zero the fold does not
+    reach (a replay from the screen's zero starts at 5).  B: a screen
+    joins two at a zero the fold reaches; the first fails, the second
+    passes.  C: the fold reaches 0 at 2 and at the last position, where a
+    screen stays above 0 throughout.  The library's fold equals the
+    oracle's on each: regions, scan counts, candidate excursions."""
     v_got = np.zeros(scores.shape[0] + 1, np.int64)
-    got = extract.extract_segment_spans(scores, 1, min_width, min_score,
-                                        visits=v_got)
+    before = (extract.replays, extract.replay_emits)
+    got = extract.extract_spans(scores, np.ones(scores.shape[0], bool),
+                                min_width, min_score, visits_full=v_got)
     v_want = np.zeros(scores.shape[0], np.int64)
-    assert got == _fold_spans(scores, 1, min_width, min_score, v_want) \
-        == want
+    want_regions, candidates = _fold_spans(scores, 1, min_width, min_score,
+                                           v_want)
+    assert [r[1:] for r in got] == want_regions == want
     assert np.array_equal(np.cumsum(v_got)[:-1], v_want)
+    assert (extract.replays - before[0], extract.replay_emits - before[1]) \
+        == (candidates, len(want))
 
 
 @pytest.mark.parametrize("case", [API_A, API_B], ids=["a", "b"])
@@ -129,8 +143,7 @@ def test_api_equals_host_and_native_on_tied_tables(case):
     JAX package's device path gives beg 55 on A and no region on B."""
     seqs, table, want = case
     got = api.kmer_regions(seqs, 1, table, 100, 20.0, device="cpu")
-    backends = ["host"] + (["native"] if native.available() else [])
-    for backend in backends:
+    for backend in ("host", "native"):
         other = api.kmer_regions(seqs, 1, table, 100, 20.0, backend=backend)
         assert _regions(got) == _regions(other) == want
         assert np.array_equal(got.counts, other.counts)
@@ -142,17 +155,17 @@ def test_api_equals_host_and_native_on_tied_tables(case):
 def test_seeded_genome_k2_equals_native():
     """A 2^20-base genome and a 16-entry table of steps of 0.1 (-0.55 to
     0.45): 780 regions and 1,988,652 scanned k-mers, equal to the host
-    library (the unrepaired replay gave 725 regions and 1,970,171)."""
+    library's caller (a replay from a screen's unconfirmed zeros gave 725
+    regions and 1,970,171)."""
     rng = np.random.default_rng(7)
     seq = "".join(rng.choice(list("ACGT"), size=1 << 20))
     w = np.round(rng.choice(np.arange(-5, 6), size=16) / 10.0 - 0.05, 2)
     got = api.kmer_regions([seq], 2, w, 20, 2.0, device="cpu")
     assert len(got.regions) == 780
     assert int(got.counts.sum()) == 1_988_652
-    if native.available():
-        want = api.kmer_regions([seq], 2, w, 20, 2.0, backend="native")
-        assert _regions(got) == _regions(want)
-        assert np.array_equal(got.counts, want.counts)
+    want = api.kmer_regions([seq], 2, w, 20, 2.0, backend="native")
+    assert _regions(got) == _regions(want)
+    assert np.array_equal(got.counts, want.counts)
 
 
 @st.composite
@@ -192,29 +205,21 @@ def test_extract_spans_equals_the_sequential_fold(case, min_width,
     visits = np.zeros(s.shape[0] + 1, np.int64)
     got = extract.extract_spans(s, scored, min_width, min_score,
                                 visits_full=visits)
-    want, want_visits = _fold_extract(s, scored, min_width, min_score)
+    want, want_visits, _ = _fold_extract(s, scored, min_width, min_score)
     assert got == want
     assert np.array_equal(np.cumsum(visits)[:-1], want_visits)
 
 
-def _both_paths(s, scored, min_width, min_score, seq_id=0):
-    """extract_spans with the host library, then with it unloaded (the
-    numpy layers): for each, (regions, visits, the change in ``replays``
-    and ``replay_emits``, folds)."""
-    out = []
-    for loaded in (True, False):
-        with pytest.MonkeyPatch.context() as mp:
-            if not loaded:
-                mp.setattr(native, "_load", lambda: None)
-            before = (extract.replays, extract.replay_emits,
-                      extract.native_folds)
-            visits = np.zeros(s.shape[0] + 1, np.int64)
-            got = extract.extract_spans(s, scored, min_width, min_score,
-                                        seq_id=seq_id, visits_full=visits)
-            out.append((got, visits, extract.replays - before[0],
-                        extract.replay_emits - before[1],
-                        extract.native_folds - before[2]))
-    return out
+def _folded(s, scored, min_width, min_score, seq_id=0):
+    """extract_spans: (regions, visits, the change in ``replays``,
+    ``replay_emits`` and ``native_folds``)."""
+    before = (extract.replays, extract.replay_emits, extract.native_folds)
+    visits = np.zeros(s.shape[0] + 1, np.int64)
+    got = extract.extract_spans(s, scored, min_width, min_score,
+                                seq_id=seq_id, visits_full=visits)
+    return (got, visits, extract.replays - before[0],
+            extract.replay_emits - before[1],
+            extract.native_folds - before[2])
 
 
 def _case_neg_inf():
@@ -257,64 +262,37 @@ def _case_many_regions():
     pytest.param(_case_many_regions, id="many_regions"),
 ])
 def test_library_fold_equals_the_numpy_path(case):
-    """The host library's fold, the numpy layers and the sequential
-    oracle agree: regions (f64 ==), scan counts, the numpy path's
-    replays and emissions counted by the fold; one fold a call."""
-    assert native.available()
+    """The host library's fold and the sequential oracle agree: regions
+    (f64 ==), scan counts, the candidate excursions counted in
+    ``replays`` and the emissions in ``replay_emits``; one fold a call.
+    On the many-regions case, whose scores neither tie nor hold -inf,
+    the JAX package's numpy copy gives the same regions and scan counts
+    too (its screen trusts its zeros, so ties are the oracle's alone)."""
     s, scored, min_width, min_score = case()
-    folded, numpy_path = _both_paths(s, scored, min_width, min_score,
-                                     seq_id=3)
-    want, want_visits = _fold_extract(s, scored, min_width, min_score)
-    assert folded[0] == numpy_path[0] == [(3,) + r[1:] for r in want]
-    assert np.array_equal(folded[1], numpy_path[1])
-    assert np.array_equal(np.cumsum(folded[1])[:-1], want_visits)
-    assert folded[2:4] == numpy_path[2:4]
-    assert folded[3] == len(want) and folded[2] >= len(want)
-    assert (folded[4], numpy_path[4]) == (1, 0)
+    got, visits, tried, emits, folds = _folded(s, scored, min_width,
+                                               min_score, seq_id=3)
+    want, want_visits, candidates = _fold_extract(s, scored, min_width,
+                                                  min_score)
+    assert got == [(3,) + r[1:] for r in want]
+    assert np.array_equal(np.cumsum(visits)[:-1], want_visits)
+    assert (tried, emits, folds) == (candidates, len(want), 1)
     if case is _case_many_regions:
         assert len(want) > 256
+        ref_visits = np.zeros(s.shape[0] + 1, np.int64)
+        assert ref_extract.extract_spans(s, scored, min_width, min_score,
+                                         seq_id=3,
+                                         visits_full=ref_visits) == got
+        assert np.array_equal(ref_visits, visits)
 
 
 @settings(max_examples=100, deadline=None, database=None)
 @given(case=tied_scores(), min_width=st.integers(0, 30),
        min_score=st.sampled_from([0.0, 0.5, 1.0, 2.0, 5.0]))
 def test_numpy_path_equals_the_library_fold(case, min_width, min_score):
-    """On tied scores with -inf, the numpy layers (the fallback without
-    the library) count the fold's candidates and emissions and give its
-    regions and scan counts."""
+    """On tied scores with -inf, the library's fold counts the oracle's
+    candidate excursions and emissions, in one fold."""
     s, scored = case
-    folded, numpy_path = _both_paths(s, scored, min_width, min_score)
-    assert folded[0] == numpy_path[0]
-    assert np.array_equal(folded[1], numpy_path[1])
-    assert folded[2:4] == numpy_path[2:4]
-
-
-@pytest.mark.parametrize("block_elems", [1 << 20, 64])
-def test_segment_sums_equal_sequential_sums(monkeypatch, block_elems):
-    """Each stretch summed from 0, left to right: the first sum <= 0 and
-    whether a sum before it reaches the bar, in one block or in blocks of
-    one power-of-two width (at most 64 elements a block)."""
-    monkeypatch.setattr(extract, "_BLOCK_ELEMS", block_elems)
-    rng = np.random.default_rng(3)
-    w = rng.choice(np.round(np.arange(-6, 6) / 10.0 + 0.05, 2), 5000)
-    w[rng.integers(0, 5000, 5)] = -np.inf
-    cuts = np.sort(rng.choice(np.arange(1, 5000), 700, replace=False))
-    starts = np.concatenate(([0], cuts))
-    lens = np.diff(np.concatenate((starts, [5000])))
-    first, reached = extract._segment_sums(w, starts, lens, reach=0.6)
-    for i, (a, ln) in enumerate(zip(starts, lens)):
-        acc, total = [], 0.0
-        for v in w[a:a + ln]:
-            total += v
-            acc.append(total)
-        acc = np.array(acc)
-        nonpos = np.flatnonzero(acc <= 0)
-        f = int(nonpos[0]) if nonpos.size else int(ln)
-        assert first[i] == f
-        assert reached[i] == bool((acc[:f] >= 0.6).any())
-
-
-def test_stream_shares_the_segment_check():
-    """The stream's tail close confirms its closes with the replay's own
-    sums."""
-    assert stream._segment_check is extract._segment_check
+    got, _, tried, emits, folds = _folded(s, scored, min_width, min_score)
+    want, _, candidates = _fold_extract(s, scored, min_width, min_score)
+    assert got == want
+    assert (tried, emits, folds) == (candidates, len(want), 1)

@@ -1,30 +1,28 @@
-"""The port's numpy copies of the host finishers against their originals.
+"""The port's host finishers against their originals and the oracle.
 
 kmer_spans_tpu_torch/spans/finish.py copies the host code of
-kmer_spans_tpu/spans/pipeline.py (which cannot be imported without JAX).
-Every copy gets the same inputs as its original and must give the same
-result, on the numpy path and on the native C++ path (the port's own host
-library, kmer_spans_tpu_torch/utils/native.py).
+kmer_spans_tpu/spans/pipeline.py (which cannot be imported without JAX),
+folding every candidate stretch in the port's host library
+(kmer_spans_tpu_torch/utils/native.py).  Every copy gets the same inputs
+as its original and must give the same result; the rank chain and the
+finished regions are held to the port's sequential oracle too.
 """
 
 import numpy as np
 import pytest
 
 from kmer_spans_tpu.spans import pipeline as ref
-from kmer_spans_tpu_torch.spans import finish
-from kmer_spans_tpu_torch.utils import native
+from kmer_spans_tpu_torch import oracle
+from kmer_spans_tpu_torch.spans import extract, finish
 from kmer_spans_tpu_torch.spans.pipeline import make_span_pipeline
 
 from conftest import random_seq
 
 
-@pytest.fixture(params=[True, False], ids=["native", "numpy"])
-def use_native(request, monkeypatch):
-    if request.param and not native.available():
-        pytest.skip("native library unavailable (no C++ toolchain)")
-    if not request.param:
-        monkeypatch.setattr(native, "available", lambda: False)
-        monkeypatch.setattr(native, "rank_chain", lambda *a: None)
+@pytest.fixture(params=["jax", "oracle"])
+def reference(request):
+    """What the port's answer is held to: the JAX package's copy, or the
+    port's sequential oracle."""
     return request.param
 
 
@@ -38,13 +36,17 @@ def _nbases(seq, block):
     return arr
 
 
-def _packed_vector(k, seed, block=1024, cand=16):
+def _genome(seed):
     rng = np.random.default_rng(seed)
     s = list(random_seq(rng, 30_000, n_prob=0.003))
     s[6000:6700] = "AG" * 350
     s[15000:15090] = "N" * 90
     s[15100:15700] = "CCT" * 200
-    arr = _nbases("".join(s), block)
+    return "".join(s)
+
+
+def _packed_vector(k, seed, block=1024, cand=16):
+    arr = _nbases(_genome(seed), block)
     fn = make_span_pipeline(k, block=block, cand_blocks=cand, packed=True,
                             device="cpu")
     return fn(arr, 0.72).numpy(), arr.shape[0], block, cand
@@ -62,13 +64,16 @@ def test_host_rank_mass():
 
 @pytest.mark.parametrize("size,hi", [(4096, 40), (4096, 70000),
                                      (1 << 16, 5), (1 << 20, 300)])
-def test_host_rank_chain(size, hi, use_native):
+def test_host_rank_chain(size, hi, reference):
+    """The numpy chain below 2^20 entries, the library's from 2^20."""
     rng = np.random.default_rng(size + hi)
     counts = rng.integers(0, hi, size).astype(np.int64)
     counts[rng.integers(0, size, 17)] = 0
     total = int(counts.sum())
     got = finish.host_rank_chain(counts, total)
-    assert np.array_equal(got, ref.host_rank_chain(counts, total))
+    want = (ref.host_rank_chain(counts, total) if reference == "jax"
+            else oracle.weighted_ranks(counts, total))
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
 @pytest.mark.parametrize("x0", [0, 5000])
@@ -116,14 +121,24 @@ def test_unpack_outputs(k, lazy):
 
 @pytest.mark.parametrize("lazy", [False, True])
 @pytest.mark.parametrize("k", [4, 6, 8])
-def test_finish_spans(k, lazy, use_native):
+def test_finish_spans(k, lazy, reference):
+    """Codes rebuilt on the host (lazy=False) fold through
+    extract_spans; packed bases (lazy=True) through the library's packed
+    replay."""
     vec, n, block, cand = _packed_vector(k, seed=10 + k)
     out = ref.unpack_outputs(vec, k, n, block, cand, packed_bases=True,
                              lazy_codes=lazy)
     got = finish.finish_spans(out, n, 0.72, 30, 5.0, block=block)
-    want = ref.finish_spans(out, n, 0.72, 30, 5.0, block=block)
-    assert got.fallback == want.fallback
-    assert got.regions == want.regions
+    if reference == "jax":
+        want = ref.finish_spans(out, n, 0.72, 30, 5.0, block=block).regions
+    else:
+        seq = _genome(10 + k)
+        counts, total = oracle.count_spectrum(seq, k)
+        assert np.array_equal(out["counts"], counts)
+        want = oracle.find_regions(seq, 0, 30, 5.0,
+                                   oracle.weighted_ranks(counts, total), k,
+                                   0.72)
+    assert got.regions == want
     assert len(got.regions) >= 2 and not got.fallback
     # overflow: a capacity too small for the candidate runs
     small = dict(out, top_idx=out["top_idx"][:1])
@@ -133,10 +148,13 @@ def test_finish_spans(k, lazy, use_native):
 
 
 def test_replay_stretch():
+    """One assembled stretch folded at its place in the sequence:
+    extract_spans with base_pos, the original's _replay_stretch."""
     rng = np.random.default_rng(4)
     s = rng.normal(-0.05, 0.3, 20_000)
     s[3000:3800] += 0.4
     scored = rng.random(20_000) < 0.97
-    got = finish._replay_stretch(s, scored, 4096, 30, 5.0, 2)
+    got = extract.extract_spans(s, scored, 30, 5.0, seq_id=2,
+                                base_pos=4096)
     assert got == ref._replay_stretch(s, scored, 4096, 30, 5.0, 2)
     assert got and all(r[0] == 2 for r in got)

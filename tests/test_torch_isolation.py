@@ -6,8 +6,9 @@ host C++ library behind utils.native).  This file holds that no module of the po
 chip_smoke.py, imports jax or kmer_spans_tpu, and that every copy gives
 what its original gives on the same seeded inputs.  The host library is
 held against the reference's numpy paths (the oracle, ``kmer_codes_np``,
-``cumulative_mass``, ``extract_spans``), to which the reference holds its
-own binding (tests/test_native.py); no test here imports that binding.
+``cumulative_mass``, ``extract_spans``, ``chain_ranks_from_mass``), to
+which the reference holds its own binding (tests/test_native.py); no
+test here loads that binding.
 """
 
 import ast
@@ -299,9 +300,17 @@ def test_sparse_spectrum_and_ranks_equal_the_reference(genomes, k):
         oracle.count_spectrum_sparse(seq, 32)
 
 
+def _never_loaded():
+    raise AssertionError("the host library was loaded")
+
+
 def test_chain_ranks_from_mass_native_fold_bit_for_bit(monkeypatch):
     """Above 2^22 terms the fold runs in the host library; it equals the
-    chunked numpy fold (held to the reference above) bit for bit."""
+    chunked numpy fold (the oracle's SparseRanks takes it at every size;
+    held to the reference above) and the reference's own numpy fold bit
+    for bit."""
+    from kmer_spans_tpu.utils import native as ref_native
+
     rng = np.random.default_rng(5)
     vals = np.array([1, 2, 3, 7, 300], np.int64)
     ncodes = np.array([3_000_000, 900_000, 400_000, 50_000, 11], np.int64)
@@ -311,9 +320,12 @@ def test_chain_ranks_from_mass_native_fold_bit_for_bit(monkeypatch):
     pm = below[g] + vals[g] * rng.integers(0, ncodes[g])
     assert native.available()
     got = ranks.chain_ranks_from_mass(pm, (vals, ncodes), total)
-    monkeypatch.setattr(native, "_load", lambda: None)
-    want = ranks.chain_ranks_from_mass(pm, (vals, ncodes), total)
+    monkeypatch.setattr(native, "_load", _never_loaded)
+    want = ranks._chain_fold(pm, vals, ncodes, total)
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
+    monkeypatch.setattr(ref_native, "chain_from_hist", lambda *a: None)
+    ref = ref_ranks.chain_ranks_from_mass(pm, (vals, ncodes), total)
+    assert np.array_equal(got.view(np.int64), ref.view(np.int64))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -468,13 +480,6 @@ def test_region_result_matches_the_reference(golden):
 
 # ------------------------------------------------------- the host library
 
-@pytest.fixture
-def numpy_path(monkeypatch):
-    """The binding as it behaves where no C++ compiler is present."""
-    monkeypatch.setattr(native, "_load", lambda: None)
-    return native
-
-
 def _genome_nbases(seed, n=200_000):
     rng = np.random.default_rng(seed)
     nb = rng.integers(0, 4, n).astype(np.uint8)
@@ -490,7 +495,7 @@ def test_host_library_builds_and_loads():
 
 
 @pytest.mark.parametrize("k", [10, 13])
-def test_host_spectrum_equals_the_reference(k, monkeypatch):
+def test_host_spectrum_equals_the_reference(k):
     nb = _genome_nbases(k)
     got, n = native.host_spectrum(nb, k)
     # the reference binding's numpy path
@@ -498,9 +503,6 @@ def test_host_spectrum_equals_the_reference(k, monkeypatch):
     codes, kv = ref_encoding.kmer_codes_np(p, k)
     want = np.bincount(codes[kv], minlength=1 << (2 * k))
     assert n == int(kv.sum()) and np.array_equal(got, want)
-    monkeypatch.setattr(native, "_load", lambda: None)
-    numpy_counts, numpy_n = native.host_spectrum(nb, k)
-    assert numpy_n == n and np.array_equal(numpy_counts, got)
 
 
 def test_count_spectrum_equals_the_oracle():
@@ -586,29 +588,59 @@ def test_replay_packed_equals_the_reference(k):
     assert got == want and got
 
 
-def test_numpy_path_where_there_is_no_compiler(numpy_path):
-    assert not numpy_path.available()
-    assert numpy_path.rank_chain(np.ones(8, np.int64), 8) is None
-    assert numpy_path.replay_scores(np.zeros(4), np.ones(4, bool), 1, 1.0,
-                                    0) is None
-    assert numpy_path.mass_of_codes(np.ones(8, np.int32),
-                                    np.arange(3)) is None
-    assert numpy_path.chain_from_hist([1], [8], 8.0, [0, 3]) is None
-    assert numpy_path.count_spectrum(np.zeros(10, np.uint8), 2) is None
-    assert numpy_path.pack_nbases(np.zeros(10, np.uint8)) is None
-    assert numpy_path.find_spans(np.zeros(10, np.uint8), 2, np.zeros(16),
-                                 0.0, 1, 1.0) is None
+def _no_compiler(monkeypatch, tmp_path):
+    """The binding as it behaves where no C++ compiler is present."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
 
 
 def test_a_failed_build_is_not_remembered(monkeypatch, tmp_path):
     """No compiler: unavailable; a compiler again: the next call builds."""
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
-    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    _no_compiler(monkeypatch, tmp_path)
     assert not native.available()
     monkeypatch.delenv("CXX")
     assert native.available()
     assert native.library_path().parent == tmp_path
+
+
+#: one call of each entry point of the binding
+_ENTRY_POINTS = {
+    "pack_nbases": lambda: native.pack_nbases(np.zeros(10, np.uint8)),
+    "count_spectrum": lambda: native.count_spectrum(
+        np.zeros(10, np.uint8), 2),
+    "host_spectrum": lambda: native.host_spectrum(np.zeros(10, np.uint8), 2),
+    "host_spectrum_sparse": lambda: native.host_spectrum_sparse(
+        np.zeros(40, np.uint8), 16),
+    "chain_from_hist": lambda: native.chain_from_hist([1], [8], 8.0,
+                                                      [0, 3]),
+    "rank_chain": lambda: native.rank_chain(np.ones(8, np.int64), 8),
+    "replay_scores": lambda: native.replay_scores(
+        np.zeros(4), np.ones(4, bool), 1, 1.0, 0),
+    "replay_tr": lambda: native.replay_tr(
+        np.zeros(4, np.int32), np.ones(4, bool), np.zeros(4, bool),
+        np.zeros(16), np.zeros(16), 0, 1),
+    "mass_of_codes": lambda: native.mass_of_codes(np.ones(8, np.int32),
+                                                  np.arange(3)),
+    "replay_packed": lambda: native.replay_packed(
+        np.zeros((1, 3), np.uint32), np.ones((1, 32), bool), 32, 2,
+        np.zeros(16), 0.5, 1, 1.0, 0),
+    "find_spans": lambda: native.find_spans(np.zeros(10, np.uint8), 2,
+                                            np.zeros(16), 0.0, 1, 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_raise_without_a_compiler(name, monkeypatch,
+                                               tmp_path):
+    """No entry point returns None: where the library does not build,
+    each raises RuntimeError with the compiler's failure; with it, each
+    answers."""
+    want = _ENTRY_POINTS[name]()
+    assert want is not None
+    _no_compiler(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        _ENTRY_POINTS[name]()
 
 
 def test_two_processes_building_at_once_both_load_a_whole_file(tmp_path):

@@ -18,11 +18,8 @@ from conftest import random_seq
 
 @pytest.fixture(scope="module")
 def ref():
-    """The JAX package's binding.  Every test worker imports
-    tests/test_native.py, whose first load builds that library; a load
-    that met another worker's build half-written is tried once more."""
-    if not jax_native.available():
-        jax_native._tried = False
+    """The JAX package's binding, whose library the root conftest.py
+    builds before any test worker starts."""
     assert jax_native.available()
     return jax_native
 
@@ -144,7 +141,7 @@ def test_capacity_growth(ref):
 
 
 @pytest.mark.parametrize("k", [16, 17, 23])
-def test_host_spectrum_sparse_equals_the_reference(ref, k, monkeypatch):
+def test_host_spectrum_sparse_equals_the_reference(ref, k):
     rng = np.random.default_rng(k)
     nb = rng.integers(0, 4, 150_000).astype(np.uint8)
     nb[rng.random(150_000) < 0.003] = 4
@@ -163,12 +160,3 @@ def test_host_spectrum_sparse_equals_the_reference(ref, k, monkeypatch):
     sparse = oracle.count_spectrum_sparse(p, k)
     assert sparse[2] == got[2]
     assert all(np.array_equal(a, b) for a, b in zip(sparse[:2], got[:2]))
-    monkeypatch.setattr(native, "_load", lambda: None)
-    assert native.host_spectrum_sparse(nb, k) is None
-
-
-def test_entry_points_without_the_library(monkeypatch):
-    monkeypatch.setattr(native, "_load", lambda: None)
-    assert native.pack_nbases(np.zeros(4, np.uint8)) is None
-    assert native.find_spans(np.zeros(40, np.uint8), 2, np.zeros(16), 0.0,
-                             1, 1.0) is None

@@ -4,10 +4,10 @@ the sequential oracle.
 The packed int32 vector must equal the reference's element for element
 (sizes are chosen so that every partial sum of the reference's f32 block
 composition is exact, asserted, where its top-C choice equals the port's
-int64 one).  The host finishers are numpy copies, held equal to their
-originals.  Regions must equal the oracle's rank chain exactly: positions
-and f64 scores.  Nothing here needs the native library: finish_pm_spans
-replays in numpy where it is missing.
+int64 one).  The host finishers are copies, held equal to their
+originals; they fold every candidate stretch in the port's host library.
+Regions must equal the sequential oracle's rank chain exactly, the JAX
+package's and the port's: positions and f64 scores.
 """
 
 import os
@@ -22,9 +22,10 @@ import torch
 from kmer_spans_tpu.oracle import count_spectrum_sparse, find_regions
 from kmer_spans_tpu.spans import pm_pipeline as ref
 from kmer_spans_tpu.stats.ranks import SparseRanks
+from kmer_spans_tpu_torch import oracle
 from kmer_spans_tpu_torch.spans import pm_finish
 from kmer_spans_tpu_torch.spans.pm_pipeline import make_pm_span_pipeline
-from kmer_spans_tpu_torch.utils import native
+from kmer_spans_tpu_torch.stats.ranks import SparseRanks as PortSparseRanks
 
 from conftest import random_seq
 from test_pm_pipeline import _arr, _plant
@@ -34,12 +35,20 @@ from test_torch_span_pipeline import _f32_exact
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(params=["as-built", "numpy"])
-def replay(request, monkeypatch):
-    """The replay as the native library's build left it, and in numpy."""
-    if request.param == "numpy":
-        monkeypatch.setattr(native, "available", lambda: False)
+@pytest.fixture(params=["jax", "oracle"])
+def reference(request):
+    """What the regions are held to: the JAX package's (its oracle, or
+    its finisher on the same outputs), or the port's sequential
+    oracle."""
     return request.param
+
+
+def _port_oracle_regions(seq, k, thr, min_w, min_s):
+    """The port's oracle over the sparse spectrum (the dense chain's
+    values at the present codes; no 4^k table)."""
+    ucodes, ucounts, _ = oracle.count_spectrum_sparse(seq, k)
+    return oracle.find_regions(seq, 0, min_w, min_s,
+                               PortSparseRanks(ucodes, ucounts), k, thr)
 
 
 def _genome(k, seed, n=50_000):
@@ -75,19 +84,20 @@ def test_packed_vector_matches_jax(k):
 
 
 @pytest.mark.parametrize("k", [10, 12, 13])
-def test_regions_match_oracle(k, replay):
+def test_regions_match_oracle(k, reference):
     seq = _genome(k, 400 + k)
     vec, _, n, meta = _port_vector(seq, k)
     out = pm_finish.unpack_pm_outputs(vec.numpy(), n, meta)
     res = pm_finish.finish_pm_spans(out, n, meta, 0.75, 30, 5.0)
     assert not res.fallback
-    expect = _chain_rank_regions(seq, k, 0.75, 30, 5.0)
+    expect = (_chain_rank_regions if reference == "jax"
+              else _port_oracle_regions)(seq, k, 0.75, 30, 5.0)
     assert len(expect) >= 2
     assert [(r[1], r[2], r[3]) for r in res.regions] == \
         [(e[1], e[2], e[3]) for e in expect]  # f64 scores bit-identical
 
 
-def test_regions_match_oracle_k15_smallv(replay):
+def test_regions_match_oracle_k15_smallv(reference):
     k = 15
     rng = np.random.default_rng(77)
     seq = _plant(
@@ -100,9 +110,12 @@ def test_regions_match_oracle_k15_smallv(replay):
     res = pm_finish.finish_pm_spans(out, n, meta, 0.75, 30, 5.0)
     assert not res.fallback
     # the sparse oracle: the same exact f64 chain over present codes
-    ucodes, ucounts, _ = count_spectrum_sparse(seq, k)
-    expect = find_regions(seq, 0, 30, 5.0, SparseRanks(ucodes, ucounts),
-                          k, 0.75)
+    if reference == "jax":
+        ucodes, ucounts, _ = count_spectrum_sparse(seq, k)
+        expect = find_regions(seq, 0, 30, 5.0, SparseRanks(ucodes, ucounts),
+                              k, 0.75)
+    else:
+        expect = _port_oracle_regions(seq, k, 0.75, 30, 5.0)
     assert len(expect) >= 2
     assert [(r[1], r[2], r[3]) for r in res.regions] == \
         [(e[1], e[2], e[3]) for e in expect]
@@ -110,7 +123,7 @@ def test_regions_match_oracle_k15_smallv(replay):
 
 @pytest.mark.parametrize("k,strategy", [(12, None), (13, "packed"),
                                         (15, None)])
-def test_finishers_equal_reference(k, strategy, replay):
+def test_finishers_equal_reference(k, strategy, reference):
     seq = _genome(k, 500 + k)
     vec, _, n, meta = _port_vector(seq, k, strategy=strategy)
     v = vec.numpy()
@@ -125,8 +138,13 @@ def test_finishers_equal_reference(k, strategy, replay):
     for cand in (None, 1):  # all candidates pulled; a missed candidate
         o = got if cand is None else dict(got, top_idx=got["top_idx"][:1])
         g = pm_finish.finish_pm_spans(o, n, meta, 0.75, 30, 5.0)
-        w = ref.finish_pm_spans(o, n, meta, 0.75, 30, 5.0)
-        assert (g.regions, g.fallback) == (w.regions, w.fallback)
+        if reference == "jax":
+            w = ref.finish_pm_spans(o, n, meta, 0.75, 30, 5.0)
+            assert (g.regions, g.fallback) == (w.regions, w.fallback)
+        elif cand is None:
+            assert g.regions == _port_oracle_regions(seq, k, 0.75, 30, 5.0)
+        else:
+            assert g.regions == []
         assert g.fallback == (cand == 1)
         assert cand == 1 or len(g.regions) >= 2
 

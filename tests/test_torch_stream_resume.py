@@ -18,6 +18,7 @@ from kmer_spans_tpu_torch.encoding import kmer_to_code
 from kmer_spans_tpu_torch.io import checkpoint
 from kmer_spans_tpu_torch.models.scoring import WeightScoring
 from kmer_spans_tpu_torch.oracle import count_spectrum, find_regions
+from kmer_spans_tpu_torch.parallel import stream
 from kmer_spans_tpu_torch.parallel.stream import (
     StreamingSpanPipeline,
     tail_close,
@@ -257,3 +258,73 @@ def test_tail_close_equals_the_sequential_fold(seed):
         assert got == want
         moved += closes.size > 0 and got != c
     assert moved > 0
+
+
+def _sums(w):
+    """Strictly sequential f64 partial sums of ``w``, from 0."""
+    acc, total = [], 0.0
+    for v in w:
+        total += v
+        acc.append(total)
+    return np.array(acc)
+
+
+@pytest.mark.parametrize("block_elems", [1 << 20, 64])
+def test_segment_sums_equal_sequential_sums(monkeypatch, block_elems):
+    """Each stretch summed from 0, left to right: the first sum <= 0, in
+    one block or in blocks of one power-of-two width (at most 64
+    elements a block)."""
+    monkeypatch.setattr(stream, "_BLOCK_ELEMS", block_elems)
+    rng = np.random.default_rng(3)
+    w = rng.choice(np.round(np.arange(-6, 6) / 10.0 + 0.05, 2), 5000)
+    w[rng.integers(0, 5000, 5)] = -np.inf
+    cuts = np.sort(rng.choice(np.arange(1, 5000), 700, replace=False))
+    starts = np.concatenate(([0], cuts))
+    lens = np.diff(np.concatenate((starts, [5000])))
+    first = stream._segment_sums(w, starts, lens)
+    for i, (a, ln) in enumerate(zip(starts, lens)):
+        nonpos = np.flatnonzero(_sums(w[a:a + ln]) <= 0)
+        assert first[i] == (int(nonpos[0]) if nonpos.size else int(ln))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_first_nonpositive_equals_sequential_sums(seed):
+    """The walk from u, in chunks doubled from 64: the fold's sums from 0
+    up to its first sum <= 0, which is z (None where there is none)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        n = int(rng.integers(1, 6000))
+        s = rng.choice([0.1, 0.2, -0.3, 0.3, -0.1, 0.05], n)
+        u = int(rng.integers(0, n))
+        got, z = stream._first_nonpositive(s, u)
+        want = _sums(s[u:])
+        nonpos = np.flatnonzero(want <= 0)
+        if nonpos.size:
+            assert z == u + int(nonpos[0])
+            want = want[:nonpos[0] + 1]
+        else:
+            assert z is None
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_check_equals_sequential_sums(seed):
+    """The first segment (restarted at 0 after each end) whose sums do
+    not stay above 0 before its end and reach <= 0 at it, with where
+    they first reach <= 0."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        n = int(rng.integers(2, 400))
+        w = rng.choice([0.1, 0.2, -0.3, 0.3, -0.1, -0.2, 0.7], n)
+        lo = int(rng.integers(0, n // 2))
+        ends = np.unique(rng.integers(lo, n, int(rng.integers(1, 8))))
+        want_i, want_j = ends.size, None
+        a = lo
+        for i, e in enumerate(ends.tolist()):
+            nonpos = np.flatnonzero(_sums(w[a:e + 1]) <= 0)
+            if not (nonpos.size and nonpos[0] == e - a):
+                want_i = i
+                want_j = a + int(nonpos[0]) if nonpos.size else None
+                break
+            a = e + 1
+        assert stream._segment_check(w, lo, ends) == (want_i, want_j)

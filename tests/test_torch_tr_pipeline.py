@@ -327,31 +327,38 @@ def _replay_inputs(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_replay_copies_equal(seed):
-    """replay_tr_segment equals the reference's; its C form in the host
-    library equals it; with the sequence length it is the oracle."""
+    """The host library's replay (replay_tr, the port's one) equals the
+    reference's replay_tr_segment; given the sequence length (which the
+    reference's replay does not take) it is the oracle, the reference's
+    and the port's."""
     ks, ts = _tables(2)
     p, codes, seed_m, ext = _replay_inputs(seed)
     args = (ks[codes], ts[codes], seed_m, ext, 0, 10, 1)
-    got = tr.replay_tr_segment(*args)
-    assert got == ref_tr.replay_tr_segment(*args)
-    assert native.available()
+    want = ref_tr.replay_tr_segment(*args)
     beg, end, sc = native.replay_tr(codes, seed_m, ext, ks, ts, 0, 10)
     assert [(1, int(b), int(e), float(v)) for b, e, v in
-            zip(beg, end, sc)] == got
+            zip(beg, end, sc)] == want and want
     seq = "".join("ACTGN"[b] if v else "N" for b, v in zip(p.bases, p.valid))
     want = find_tr_regions(seq, 1, 2, ks, ts, 0)
-    assert tr.replay_tr_segment(*args[:5], 0, 1, seq_len=p.n) == want
+    assert want == ref_find_tr_regions(seq, 1, 2, ks, ts, 0)
     beg, end, sc = native.replay_tr(codes, seed_m, ext, ks, ts, 0, 0, p.n)
     assert [(1, int(b), int(e), float(v)) for b, e, v in
             zip(beg, end, sc)] == want
 
 
-def test_regions_without_the_host_library(monkeypatch):
+def test_regions_without_the_host_library(monkeypatch, tmp_path):
+    """The replay needs the host library: where it does not build, the
+    finish raises RuntimeError, after the device steps; with it, the
+    regions are the oracle's."""
     seq = _islands(2)
     ks, ts = _tables(2)
-    with_lib = _run(seq, 2, ks, ts, 20).regions
-    monkeypatch.setattr(native, "_load", lambda: None)
-    assert _run(seq, 2, ks, ts, 20).regions == with_lib
+    assert _run(seq, 2, ks, ts, 20).regions == \
+        find_tr_regions(seq, 1, 2, ks, ts, 20)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="host library"):
+        _run(seq, 2, ks, ts, 20)
 
 
 @pytest.mark.parametrize("k", [2, 8])

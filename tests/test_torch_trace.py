@@ -28,8 +28,7 @@ from kmer_spans_tpu_torch.spans.pipeline import (
 )
 from kmer_spans_tpu_torch.utils import metrics, native
 
-FINISH_CHILDREN = {"finish.pull", "finish.assemble", "extract.fold",
-                   "extract.screen", "extract.confirm", "extract.replay"}
+FINISH_CHILDREN = {"finish.pull", "finish.assemble", "extract.fold"}
 
 
 def _low_comp(seqs):
@@ -89,7 +88,6 @@ def test_spans_nest_under_their_call():
                  "finish.weight"):
         assert parent_of[name] == {"regions.sequence"}
     assert {"finish.assemble", "extract.fold"} <= set(parent_of)
-    assert not {"extract.screen", "extract.replay"} & set(parent_of)
     for name in FINISH_CHILDREN & set(parent_of):
         assert parent_of[name] == {"finish.weight"}
     stretches = rec.by_name()["finish.assemble"][0]
@@ -108,24 +106,28 @@ def test_spans_nest_under_their_call():
         2 * 2 * 2 * pdevice.bucket_size(60_000)
 
 
-def test_numpy_path_spans_nest_under_the_finish(monkeypatch):
-    """Without the host library the numpy layers extract: their screen
-    and replays lie in ``finish.weight``, no fold runs, and the same
-    regions come out."""
+def test_numpy_path_spans_nest_under_the_finish():
+    """The finish's one fold: on the same two sequences each candidate
+    stretch's ``extract.fold`` lies in ``finish.weight``, after its
+    assembly; the counters count one fold a stretch, every region among
+    the emissions and at least as many candidate excursions, and the
+    regions are those of the recorder off."""
     seqs = _two_sequences()
-    with_fold = _low_comp(seqs)
-    monkeypatch.setattr(native, "_load", lambda: None)
+    off = _low_comp(seqs)
     with metrics.tracing() as rec:
         got = _low_comp(seqs)
-    assert got.tobytes() == with_fold.tobytes() and got.size
+    assert got.tobytes() == off.tobytes() and got.size
     parent_of = _finish_parents(rec)
-    assert {"finish.assemble", "extract.screen", "extract.replay"} \
-        <= set(parent_of)
-    assert "extract.fold" not in parent_of
+    assert {"finish.assemble", "extract.fold"} <= set(parent_of)
     for name in FINISH_CHILDREN & set(parent_of):
         assert parent_of[name] == {"finish.weight"}
-    assert rec.counters["spans.extract:native_folds"] == 0
-    assert rec.counters["spans.extract:replays"] > 0
+    names = [s.name for s in rec.spans if s.name in ("finish.assemble",
+                                                      "extract.fold")]
+    assert names == ["finish.assemble", "extract.fold"] * (len(names) // 2)
+    c = rec.counters
+    assert c["spans.extract:native_folds"] == len(names) // 2 > 0
+    assert c["spans.extract:replay_emits"] == got.size
+    assert c["spans.extract:replays"] >= got.size
 
 
 def _extract_tied(s):
@@ -152,28 +154,26 @@ def test_answers_bit_identical_with_the_recorder_on(case):
 
 
 @pytest.mark.parametrize("scores, min_width, min_score, want, counts", [
-    # integers: the screen is exact.  The first pass over the whole range
-    # finds the excursions at 0 (S 1, 2, then 0 at 2; 1 >= min_width 1
-    # long, max 2) and at 3 (S 2, 4, 6, then 0 at 6); the one at 7 is
-    # too short.  Both replays emit; each rescan range ([2, 2] and
-    # [6, 6]) is one position, too short for any excursion: 3 ranges.
+    # integers: the fold finds the excursions at 0 (S 1, 2, then 0 at 2;
+    # 1 >= min_width 1 long, max 2) and at 3 (S 2, 4, 6, then 0 at 6);
+    # the one at 7 is too short.  Both candidates emit; each rescan
+    # ([2, 2] and [6, 6]) holds no positive score: one fold.
     ([1, 1, -5, 2, 2, 2, -10, 3], 1, 2.0,
-     [(1, 2, 2.0), (4, 6, 6.0)], (3, 0, 2, 2)),
-    # ties: the screen's only zero is at 0, so its one run (1..4) does not
-    # hold (the fold reaches 0 at 2): two walks, from 1 (to the fold's
-    # zero at 2, not a screened zero) and from 3 (to the end), confirm
-    # the excursions at 1 and 3.  Both emit; their rescans ([2, 2] and
-    # [4, 4], one score -0.4 each) hold nothing: 3 ranges.
+     [(1, 2, 2.0), (4, 6, 6.0)], (2, 2, 1)),
+    # ties: the fold reaches 0 at 2 (0.4 - 0.4) and at 4: the excursions
+    # at 1 and 3 are candidates and emit; their rescans ([2, 2] and
+    # [4, 4], one score -0.4 each) hold nothing: one fold.
     ([-0.1, 0.4, -0.4, 0.4, -0.4], 0, 0.0,
-     [(2, 2, 0.4), (4, 4, 0.4)], (3, 2, 2, 2)),
+     [(2, 2, 0.4), (4, 4, 0.4)], (2, 2, 1)),
 ], ids=["integers", "ties"])
 def test_extract_counters_by_hand(scores, min_width, min_score, want,
                                   counts):
-    names = ("replay_ranges", "confirm_walks", "replays", "replay_emits")
+    names = ("replays", "replay_emits", "native_folds")
     before = [getattr(extract, n) for n in names]
-    got = extract.extract_segment_spans(np.array(scores, float), 1,
-                                        min_width, min_score)
-    assert got == want
+    scores = np.array(scores, float)
+    got = extract.extract_spans(scores, np.ones(scores.shape[0], bool),
+                                min_width, min_score)
+    assert [r[1:] for r in got] == want
     assert tuple(getattr(extract, n) - b
                  for n, b in zip(names, before)) == counts
 
