@@ -23,11 +23,13 @@ Run from the repository root.  Phases, each of which raises on failure:
      every value in one bin, all in one part of 2^15 bins, values on part
      boundaries, half of them negative or >= size; 4^13 and 4^15 bins in
      the partitioned and global forms; the partitioned form's chunked
-     walk under a 4 MiB scratch cap; for the class
-     gather tables of 2
-     to 2^15 words, random entries, 2^17 identical entries, entries all in
-     the last word, a length that is not a multiple of 4, an unaligned
-     view, and the table sizes it must refuse);
+     walk under a 4 MiB scratch cap; for the window counts kernel k = 1
+     to 15, 1 to 40 tracked rows with repeats, windows 2k to 70,000, N
+     runs, the padded tail, unaligned starts and the cohort's seg, with
+     counts and without; for the class gather tables of 2 to 2^15
+     words, random entries, 2^17 identical entries, entries all in the
+     last word, a length that is not a multiple of 4, an unaligned view,
+     and the table sizes it must refuse);
   4. the golden genome through api.kmer_low_comp_regions(mode="fast") on
      the card at k = 8 (exactly the 3 planted regions), 9, 3 and 12, and
      through its default mode="exact" at k = 8 (the same 3 regions), equal
@@ -53,8 +55,10 @@ Run from the repository root.  Phases, each of which raises on failure:
      and 4^12 the partitioned form's passes each, from torch.profiler), the
      window path's count histograms (16 dimers, window 200: 3328 bins,
      and 154 scaffolds' 154 * 3232 bins, every form, beside the mask they
-     need), and the class gather's k = 9 codes (32768 words) and k = 12
-     sort-screen entries (16384 words);
+     need), the window counts kernel at 2^22 starts and 16 dimers, with
+     counts and without, beside its plain chain (window_group and
+     dist_values), and the class gather's k = 9 codes (32768 words) and
+     k = 12 sort-screen entries (16384 words);
   7. the full-size k >= 10 path on the same genome, for k = 12 (packed
      key), 13 and 15 (strategy from the length): make_pm_span_pipeline ->
      unpack_pm_outputs -> finish_pm_spans, launch counts read around each
@@ -84,7 +88,8 @@ Run from the repository root.  Phases, each of which raises on failure:
      the 154-scaffold cohort (bench.py's lengths) per scaffold
      (api.kmer_counts k = 1 and api.window_kmer_dist) and in one
      windowed_counts_device(seg2d=...) call, equal to the per-scaffold
-     dists; K3's launches counted, staging and chunk device time logged;
+     dists; K3's launches counted, the window counts kernel launched once
+     a chunk, staging and chunk device time logged;
  11. api.lr_regions on the same genome at min_length 100, k = 2 and 8,
      with the kernels and with the plain versions (equal), every planted
      island called, the pull batches counted, the stages (staging,
@@ -318,6 +323,71 @@ def check_histogram_edges(dev, rng) -> None:
         f"plain in {chunks} chunks, offset views aligned alike and unlike")
 
 
+def window_values_err(args: tuple, want_counts: bool) -> int:
+    """max |err| of window_values against its plain version on the same
+    CUDA tensors: values, valid, wv and cnt; the sizes equal."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops.window import (
+        window_values,
+        window_values_plain,
+    )
+
+    got = window_values(*args, want_counts=want_counts)
+    want = window_values_plain(*args, want_counts=want_counts)
+    torch.cuda.synchronize()
+    if got[2] != want[2]:
+        raise AssertionError(f"window_values size {got[2]} != {want[2]}")
+    keep = (0, 1, 3, 4) if want_counts else (0, 1, 3)
+    return max_abs_err(tuple(got[i] for i in keep),
+                       tuple(want[i] for i in keep))
+
+
+def check_window_counts(dev, rng) -> int:
+    """Phase 3, the window counts kernel against its plain version: k 1 to
+    15, 1 to 40 tracked rows (repeats among them), windows from 2k to
+    70,000 (its run sizes), N runs, the padded tail, unaligned lo and m
+    not a multiple of 4, the cohort's seg; with counts and without."""
+    import torch
+
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+    from kmer_spans_tpu_torch.ops.convert import to_tensor
+
+    n = 48 * BLOCK
+    arr = rng.integers(0, 4, n).astype(np.uint8)
+    arr[rng.random(n) < 0.0005] = 4
+    arr[9000:9300] = 4
+    arr[50_000:53_000] = np.tile(np.array([0, 3], np.uint8), 1500)
+    x = to_tensor(arr, dev)
+    b2, v2 = (x & 3).reshape(-1, BLOCK), (x < 4).reshape(-1, BLOCK)
+    seg = to_tensor(np.sort(rng.integers(0, 154, n)).astype(np.int32), dev)
+    err, cases = 0, 0
+    for k, windows in ((1, (2, 200)), (2, (4, 200, 1025, 4097, 16385,
+                                          70_000)),
+                       (5, (10, 201)), (12, (24, 200)), (15, (30, 113))):
+        codes, kv = blocked_codes(b2, v2, k)
+        c, kv = codes.reshape(-1), kv.reshape(-1)
+        present = c[kv].cpu().numpy()
+        for T in (1, 3, 16, 40):
+            tr = rng.choice(present, T).astype(np.int32)
+            tr[T - T // 4:] = tr[:T // 4]
+            tracked = to_tensor(tr, dev)
+            for w in windows:
+                for lo, hi, sg in ((0, 40 * BLOCK, None), (3, n - 5, None),
+                                   (0, n, seg)):
+                    for want_counts in (False, True):
+                        err = max(err, window_values_err(
+                            (c, kv, v2.reshape(-1), tracked, k, w, lo, hi,
+                             sg, None if sg is None else 154), want_counts))
+                        cases += 1
+    if err:
+        raise AssertionError(f"window_values: max |err| {err}")
+    log(f"  window_values: equal to plain in {cases} cases (k 1 to 15, 1 to "
+        "40 tracked rows with repeats, windows 2k to 70,000, N runs, the "
+        "padded tail, unaligned starts, seg)")
+    return err
+
+
 def check_kernels(dev, seed: int) -> dict:
     """Phase 3: every kernel against its plain version, exact."""
     import torch
@@ -340,7 +410,7 @@ def check_kernels(dev, seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     err = {"count_aug": 0, "fused_screen_scan": 0, "histogram": 0,
-           "word_gather": 0}
+           "word_gather": 0, "window_counts": check_window_counts(dev, rng)}
     thr_q = torch.tensor(3071, dtype=torch.int32, device=dev)
     for nw in (2, 8, 8192, 16384, 32768):
         words = to_tensor(rng.integers(-(2 ** 31), 2 ** 31, nw,
@@ -789,13 +859,16 @@ def cohort_counts_inputs(dev, cat: np.ndarray, seg: np.ndarray):
     return codes, kv, v2, to_tensor(seg, dev).reshape(-1, BLOCK)
 
 
-def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
+def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> tuple:
     """Phase 6, K3 at the window path's shapes: the histogram of the 16
     dimers' counts over the first chunk's 2^22 window starts (window 200,
     3328 bins) and over the 154-scaffold cohort's first group of 2^22
     starts (154 * 3232 bins), each beside the mask it needs (the window
     validity made contiguous over the 16 rows).  Also logs the device
-    time of a chunk's other stages at that shape."""
+    time of a chunk's other stages at that shape, and times the window
+    counts kernel there against its plain chain (window_group and
+    dist_values), with and without counts, beside its bound.  Returns (K3's
+    entries, the window counts kernel's)."""
     import torch
 
     from kmer_spans_tpu_torch.ops.blocked import blocked_codes
@@ -803,6 +876,8 @@ def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
         GROUP,
         dist_values,
         window_group,
+        window_values,
+        window_values_plain,
     )
 
     tracked = torch.arange(16, dtype=torch.int32, device=dev)
@@ -812,13 +887,34 @@ def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
     v = (x < 4)
     cnt, wv = window_group(codes.reshape(-1), kv.reshape(-1), v, tracked, 2,
                            200, 0, GROUP)
+    group = (codes.reshape(-1), kv.reshape(-1), v, tracked, 2, 200, 0, GROUP)
     stages = {
         "codes": lambda: blocked_codes(b2, v2, 2),
-        "counts and validity": lambda: window_group(
-            codes.reshape(-1), kv.reshape(-1), v, tracked, 2, 200, 0, GROUP),
-        "K3 input with its mask": lambda: dist_values(cnt, wv, 200)}
+        "counts and validity": lambda: window_group(*group),
+        "K3 input with its mask": lambda: dist_values(cnt, wv, 200),
+        "the window counts kernel for both": lambda: window_values(*group)}
     log("  window chunk stages (2^22 starts, 16 dimers), ms: " + ", ".join(
         f"{name} {time_ms(fn, 3):.3f}" for name, fn in stages.items()))
+    shapes = []
+    for want_counts in (False, True):
+        err = window_values_err(group, want_counts)
+        if err:
+            raise AssertionError(f"window_values differs from plain at 2^22 "
+                                 f"starts: max |err| {err}")
+        label = ("16 dimers, w = 200, 2^22 starts"
+                 + (", with counts" if want_counts else ""))
+        t = in_turns(f"window_values ({label})",
+                     lambda c=want_counts: window_values(*group,
+                                                         want_counts=c),
+                     lambda c=want_counts: window_values_plain(
+                         *group, want_counts=c))
+        # a code, a k-mer and a base flag read a position; values and mask
+        # written a row a start, the window validity a start, and the
+        # counts a row a start with them
+        nbytes = (GROUP + 200) * 6 + GROUP * (16 * (9 if want_counts else 5)
+                                              + 1)
+        shapes.append({**shape_entry(label, t, bound(nbytes, 2 * 16 * GROUP)),
+                       "err": err})
     out = []
     values, valid, size = dist_values(cnt, wv, 200)
     out.append(hist_entry(
@@ -838,7 +934,7 @@ def time_window_k3(dev, nbases_dev, nbases: np.ndarray) -> list:
         "starts", values, valid, size,
         more=(("mask_ms", lambda: wv[None, :].expand(16, -1).contiguous()),),
         kind="repeats"))
-    return out
+    return out, main_entry(shapes)
 
 
 def golden_phase(dev, k: int, mode: str = "fast") -> None:
@@ -904,29 +1000,33 @@ def golden_spans_phase(dev, scoring: str) -> None:
 def plain_versions(on: bool):
     """While on, the pipelines' kernel calls run their plain PyTorch
     versions on the card (the reference runs of phases 5 and 7)."""
-    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
+    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan, window
 
     saved = (histogram.count_aug, histogram.histogram,
-             screen_scan.fused_screen_scan, gather.word_gather)
+             screen_scan.fused_screen_scan, gather.word_gather,
+             window.window_values)
     if on:
         histogram.count_aug = histogram.count_aug_plain
         histogram.histogram = histogram.histogram_plain
         screen_scan.fused_screen_scan = screen_scan.fused_screen_scan_plain
         gather.word_gather = gather.word_gather_plain
+        window.window_values = window.window_values_plain
     try:
         yield
     finally:
         (histogram.count_aug, histogram.histogram,
-         screen_scan.fused_screen_scan, gather.word_gather) = saved
+         screen_scan.fused_screen_scan, gather.word_gather,
+         window.window_values) = saved
 
 
 def zero_launch_counts() -> None:
-    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan
+    from kmer_spans_tpu_torch.ops import gather, histogram, screen_scan, window
 
     histogram.count_aug_launches = 0
     histogram.histogram_launches = 0
     screen_scan.launches = 0
     gather.launches = 0
+    window.window_counts_launches = 0
 
 
 def check_islands(res, n: int) -> int:
@@ -1359,12 +1459,12 @@ def window_stages():
 def both_runs(label, call, card, stages, counted=True):
     """Run ``call`` with the kernels, then with the plain versions, each
     timed; returns (kernels' result, plain result, K3's launches in the
-    kernels' run)."""
+    kernels' run, the window counts kernel's launches in it)."""
     import torch
 
-    from kmer_spans_tpu_torch.ops import histogram
+    from kmer_spans_tpu_torch.ops import histogram, window
 
-    out, launches = [], 0
+    out, launches, n_window = [], 0, 0
     for plain in (False, True):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1376,6 +1476,7 @@ def both_runs(label, call, card, stages, counted=True):
             wall = time.perf_counter() - t0
         if not plain:
             launches = histogram.histogram_launches
+            n_window = window.window_counts_launches
             if counted and launches < 1:
                 raise AssertionError(f"{label}: the path skipped K3")
         parts = ", ".join(
@@ -1383,38 +1484,54 @@ def both_runs(label, call, card, stages, counted=True):
             f"{key} {v}" for key, v in st.items())
         log(f"  {label}, {'plain versions' if plain else 'kernels'}: wall "
             f"{wall:.3f} s; {parts}; K3 launches "
-            f"{histogram.histogram_launches}; peak device memory "
+            f"{histogram.histogram_launches}, window counts launches "
+            f"{window.window_counts_launches}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
         out.append(res)
-    return out[0], out[1], launches
+    return out[0], out[1], launches, n_window
 
 
-def window_phase(dev, nbases: np.ndarray, card: str) -> int:
+def window_phase(dev, nbases: np.ndarray, card: str) -> tuple[int, int]:
     """Phase 10: windowed distributions at full size, each run with the
     kernels and again with the plain versions, the two equal: the 16
     dimers, window 200, over the whole genome (ret_flag 0) and its first
     48 Mb (ret_flag 1, the int64 positions matrix); the 154-scaffold
     cohort per scaffold (kmer_counts k = 1 and window_kmer_dist) and in
-    one windowed_counts_device(seg2d=...) call.  Returns K3's launches in
-    the kernels' runs."""
+    one windowed_counts_device(seg2d=...) call.  Returns K3's launches and
+    the window counts kernel's in the kernels' runs, that kernel launched
+    once a chunk (a group of starts)."""
     import torch
 
     from kmer_spans_tpu_torch import api
     from kmer_spans_tpu_torch.encoding import PackedSeq
-    from kmer_spans_tpu_torch.ops.window import windowed_counts_device
+    from kmer_spans_tpu_torch.ops.window import GROUP, windowed_counts_device
+    from kmer_spans_tpu_torch.parallel import window_stream
 
     dimers = api.kmer_seq(2)
-    launches = 0
+    launches, n_window = 0, 0
+
+    def runs(label, call, stages):
+        """both_runs, and the window counts kernel launched once a chunk
+        (a group of starts) in the kernels' run."""
+        nonlocal launches, n_window
+        c0 = window_stream.chunks
+        got, want, n_k3, n_w = both_runs(label, call, card, stages)
+        chunks = (window_stream.chunks - c0) // 2
+        if n_w != chunks:
+            raise AssertionError(f"{label}: {n_w} window counts launches "
+                                 f"for {chunks} chunks")
+        launches += n_k3
+        n_window += n_w
+        return got, want, n_k3
 
     def packed(x):
         return PackedSeq(bases=x & 3, valid=x < 4)
 
     seq = packed(nbases)
-    got, want, n_k3 = both_runs(
+    got, want, n_k3 = runs(
         "window_kmer_dist 16 dimers w=200 ret_flag=0",
         lambda: api.window_kmer_dist(seq, dimers, 200, freq=False,
-                                     device=dev), card, window_stages)
-    launches += n_k3
+                                     device=dev), window_stages)
     if not np.array_equal(got.dist, want.dist) or got.scores is not None:
         raise AssertionError("window_kmer_dist differs from the plain run")
     nwin = int(got.dist[:, 0].sum())
@@ -1425,12 +1542,10 @@ def window_phase(dev, nbases: np.ndarray, card: str) -> int:
         "equal to the plain run")
     del got, want
     head = packed(nbases[:48_000_000])
-    got, want, n_k3 = both_runs(
+    got, want, _ = runs(
         "window_kmer_dist 16 dimers w=200 ret_flag=1, first 48 Mb",
         lambda: api.window_kmer_dist(head, dimers, 200, freq=False,
-                                     ret_flag=1, device=dev),
-        card, window_stages)
-    launches += n_k3
+                                     ret_flag=1, device=dev), window_stages)
     if not (np.array_equal(got.dist, want.dist)
             and np.array_equal(got.scores[0], want.scores[0])):
         raise AssertionError("window_kmer_dist ret_flag=1 differs from the "
@@ -1459,9 +1574,8 @@ def window_phase(dev, nbases: np.ndarray, card: str) -> int:
             f"{time.perf_counter() - t1:.3f} s")
         return np.stack(mono), np.stack(dists)
 
-    got, want, n_k3 = both_runs("cohort, per-scaffold calls", per_scaffold,
-                                card, window_stages)
-    launches += n_k3
+    got, want, _ = runs("cohort, per-scaffold calls", per_scaffold,
+                        window_stages)
     if not all(np.array_equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("cohort per scaffold differs from the plain run")
     mono, dists = got
@@ -1481,9 +1595,14 @@ def window_phase(dev, nbases: np.ndarray, card: str) -> int:
             f"windowed_counts_device {time.perf_counter() - t1:.3f} s")
         return d
 
-    got, want, n_k3 = both_runs("cohort, one seg2d call", one_call, card,
-                                lambda: contextlib.nullcontext({}))
+    got, want, n_k3, n_w = both_runs("cohort, one seg2d call", one_call,
+                                     card, lambda: contextlib.nullcontext({}))
+    groups = -(-cat.shape[0] // GROUP)
+    if n_w != groups:
+        raise AssertionError(f"cohort call: {n_w} window counts launches for "
+                             f"{groups} groups")
     launches += n_k3
+    n_window += n_w
     if not np.array_equal(got, want):
         raise AssertionError("cohort call differs from the plain run")
     if not np.array_equal(got.astype(np.int64), dists):
@@ -1491,7 +1610,7 @@ def window_phase(dev, nbases: np.ndarray, card: str) -> int:
                              "calls")
     log(f"  cohort: per-scaffold calls and the one seg2d call equal "
         f"(dist {got.shape}), equal to the plain runs")
-    return launches
+    return launches, n_window
 
 
 @contextlib.contextmanager
@@ -1568,7 +1687,7 @@ def lr_phase(dev, nbases: np.ndarray, card: str) -> None:
     for k in (2, 8):
         kmers, ks, ts = tr_tables(k)
         api.exact_fallbacks = 0
-        got, want, _ = both_runs(
+        got, want, _, _ = both_runs(
             f"lr_regions k={k} min_length=100",
             lambda: api.lr_regions(seq, (k, 100), kmers, ks, ts, device=dev),
             card, tr_stages, counted=False)
@@ -2820,7 +2939,11 @@ def main(argv=None) -> int:
     times["word_gather"], more = time_word_gather(dev, nbases_dev)
     k3 = more[:1] + k3 + more[1:]  # k = 9 count first: the JSON line's
     k3 += time_spectra(dev, nbases_dev)
-    k3 += time_window_k3(dev, nbases_dev, nbases)
+    more, times["window_counts"] = time_window_k3(dev, nbases_dev, nbases)
+    k3 += more
+    err["window_counts"] = max(err["window_counts"],
+                               *(e["err"] for e in times["window_counts"]
+                                 ["shapes"]))
     k2, k4, more = time_stream_shapes(dev, nbases_dev)
     times["fused_screen_scan"]["shapes"].append(k2)
     times["word_gather"]["shapes"].append(k4)
@@ -2853,7 +2976,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     phase("phase 10: full-size windowed distributions")
-    launches["histogram"] += window_phase(dev, nbases, card)
+    n_k3, launches["window_counts"] = window_phase(dev, nbases, card)
+    launches["histogram"] += n_k3
     torch.cuda.empty_cache()
 
     phase("phase 11: full-size transition-score caller")
@@ -2899,6 +3023,9 @@ def main(argv=None) -> int:
                       "kmer_spans_tpu/ops/pallas_kernels.py:83"),
         "word_gather": ("kmer_spans_tpu_torch/csrc/word_gather.cu",
                         "kmer_spans_tpu/ops/gather.py:184"),
+        "window_counts": ("kmer_spans_tpu_torch/csrc/window_counts.cu",
+                          "none: kmer_spans_tpu/ops/window.py window_group "
+                          "is XLA cumsums"),
     }
     log(card)
     print(json.dumps({"kernels": [

@@ -51,6 +51,11 @@ _SIGNATURES = {
     # entry, n, words, n_words, thr_q, out, num_sms, stream
     "kst_word_gather": (_P, ctypes.c_int64, _P, ctypes.c_int32, _P, _P,
                         ctypes.c_int32, _P),
+    # codes, kv, v, n, tracked, T, k, window, m, seg, nbins, values, valid,
+    # wv, cnt, num_sms, stream
+    "kst_window_counts": (_P, _P, _P, ctypes.c_int64, _P, ctypes.c_int32,
+                          ctypes.c_int32, ctypes.c_int32, ctypes.c_int64, _P,
+                          ctypes.c_int32, _P, _P, _P, _P, ctypes.c_int32, _P),
 }
 
 _lib: ctypes.CDLL | None = None

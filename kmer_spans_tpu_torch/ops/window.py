@@ -9,10 +9,14 @@ sum of w's indicator vector,
     occ[p]   = [code ending at p+k-1 == w]  (start-position convention)
     count[t] = sum of occ[t .. t+window-k]  (slots = window-k+1 starts)
 
-taken for all T tracked k-mers at once from an int32 ``torch.cumsum``
-along each row of a [T, group + window] tile (exact below 2^31).  The
-window starts go in groups of 2^22, each reading a ``window``-base
-lookahead, which bounds the device memory of a call whatever its length.
+for all T tracked k-mers at once.  The window starts go in groups of
+2^22, each reading a ``window``-base lookahead, which bounds the device
+memory of a call whatever its length.  ``window_values`` takes a group
+from its codes to K3's input: on a CUDA tensor one launch of
+csrc/window_counts.cu, which slides each count by one a start (counted in
+``window_counts_launches``); on a CPU tensor the plain version,
+``window_group`` (an int32 ``torch.cumsum`` along each row of a
+[T, group + window] tile, exact below 2^31) and ``dist_values``.
 
 The count histogram is K3 (ops/histogram.py histogram) over the combined
 (kmer, count) indices, T·(window+2) bins rounded up to 128, or over
@@ -25,12 +29,17 @@ the padded tail.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import histogram
+from . import _build, histogram
 
 #: window starts per group of windowed_counts_device (one K3 launch each)
 GROUP = 1 << 22
+#: window_values kernel launches since the count was last set to 0: one a
+#: group of window starts on the card
+window_counts_launches = 0
 
 
 def window_group(flat_c: torch.Tensor, flat_kv: torch.Tensor,
@@ -88,6 +97,106 @@ def dist_values(cnt: torch.Tensor, wv: torch.Tensor, window: int,
     return comb, wv[None, :].expand(T, -1).contiguous(), size
 
 
+def window_values_plain(flat_c: torch.Tensor, flat_kv: torch.Tensor,
+                        flat_v: torch.Tensor, tracked: torch.Tensor, k: int,
+                        window: int, lo: int, hi: int,
+                        seg: torch.Tensor | None = None,
+                        n_seqs: int | None = None, want_counts: bool = False):
+    """Plain PyTorch window_values: window_group, then dist_values."""
+    _check_window_inputs(flat_c, flat_kv, flat_v, tracked, k, window, lo, hi,
+                         seg, n_seqs)
+    cnt, wv = window_group(flat_c, flat_kv, flat_v, tracked, k, window, lo,
+                           hi)
+    values, valid, size = dist_values(
+        cnt, wv, window, None if seg is None else seg[lo:hi], n_seqs)
+    return values, valid, size, wv, cnt if want_counts else None
+
+
+def _check_window_inputs(flat_c, flat_kv, flat_v, tracked, k, window, lo, hi,
+                         seg, n_seqs) -> None:
+    if flat_c.dtype != torch.int32 or tracked.dtype != torch.int32:
+        raise TypeError(f"codes and tracked must be int32, got "
+                        f"{flat_c.dtype} and {tracked.dtype}")
+    if flat_kv.dtype != torch.bool or flat_v.dtype != torch.bool:
+        raise TypeError(f"kv and v must be bool, got {flat_kv.dtype} and "
+                        f"{flat_v.dtype}")
+    n = flat_c.shape[0]
+    flats = [flat_c, flat_kv, flat_v] + ([] if seg is None else [seg])
+    if any(x.dim() != 1 or x.shape[0] != n for x in flats) \
+            or tracked.dim() != 1:
+        raise ValueError("codes, kv, v and seg must be 1-D of one length, "
+                         "tracked 1-D")
+    if any(x.device != flat_c.device for x in flats + [tracked]):
+        raise ValueError("window_values: inputs on more than one device")
+    if seg is not None and seg.dtype != torch.int32:
+        raise TypeError(f"seg must be int32, got {seg.dtype}")
+    if seg is not None and n_seqs is None:
+        raise ValueError("window_values: seg without n_seqs")
+    if not 1 <= k <= window or not 0 <= lo <= hi <= n:
+        raise ValueError(f"window_values: k={k}, window={window}, starts "
+                         f"{lo}..{hi} of {n}")
+
+
+def window_values(flat_c: torch.Tensor, flat_kv: torch.Tensor,
+                  flat_v: torch.Tensor, tracked: torch.Tensor, k: int,
+                  window: int, lo: int, hi: int,
+                  seg: torch.Tensor | None = None, n_seqs: int | None = None,
+                  want_counts: bool = False):
+    """K3's input for the windows starting at lo .. hi-1: what window_group
+    followed by dist_values give.
+
+    flat_c: int32 [n] end-position codes; flat_kv, flat_v: bool [n] k-mer
+    validity and non-N mask; tracked: int32 [T]; seg: int32 [n], each
+    position's scaffold (the cohort mode, with n_seqs).  Positions at or
+    past n read as N.  Returns (values int32 [T, m], valid bool [T, m],
+    size, wv bool [m], cnt int32 [T, m] or None): cnt, the counts with 0
+    where the window is invalid, only ``want_counts``.  A CUDA tensor
+    launches csrc/window_counts.cu (equal to the plain version bit for
+    bit), a CPU tensor takes window_values_plain.
+    """
+    global window_counts_launches
+    if flat_c.device.type == "cpu":
+        return window_values_plain(flat_c, flat_kv, flat_v, tracked, k,
+                                   window, lo, hi, seg, n_seqs, want_counts)
+    _check_window_inputs(flat_c, flat_kv, flat_v, tracked, k, window, lo, hi,
+                         seg, n_seqs)
+    if flat_c.device.type != "cuda":
+        raise ValueError(f"window_values: unsupported device {flat_c.device}")
+    flats = [flat_c, flat_kv, flat_v, tracked] + ([] if seg is None else [seg])
+    if not all(x.is_contiguous() for x in flats):
+        raise ValueError("window_values: inputs must be contiguous")
+    dev, m, T = flat_c.device, hi - lo, tracked.shape[0]
+    stride = T * (window + 2)  # the bins of one scaffold
+    nbins = stride * (1 if seg is None else int(n_seqs))
+    if nbins >= 1 << 31:
+        raise ValueError(f"window_values: {nbins} bins, not below 2^31")
+    values = torch.empty((T, m), dtype=torch.int32, device=dev)
+    valid = torch.empty((T, m), dtype=torch.bool, device=dev)
+    wv = torch.empty(m, dtype=torch.bool, device=dev)
+    cnt = (torch.empty((T, m), dtype=torch.int32, device=dev)
+           if want_counts else None)
+    size = -(-nbins // 128) * 128
+    if m == 0:
+        return values, valid, size, wv, cnt
+
+    def at(x, i=0):
+        return ctypes.c_void_p(x.data_ptr() + i * x.element_size())
+
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.kst_window_counts(
+            at(flat_c, lo), at(flat_kv, lo), at(flat_v, lo),
+            flat_c.shape[0] - lo, at(tracked), T, k, window, m,
+            ctypes.c_void_p(None) if seg is None else at(seg, lo),
+            stride, at(values), at(valid), at(wv),
+            ctypes.c_void_p(None) if cnt is None else at(cnt),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "kst_window_counts")
+    window_counts_launches += 1
+    return values, valid, size, wv, cnt
+
+
 def windowed_counts_device(
     codes2d: torch.Tensor,
     kmer_valid2d: torch.Tensor,
@@ -142,13 +251,12 @@ def windowed_counts_device(
     starts = n if start_limit is None else max(0, min(n, start_limit))
     for lo in range(0, starts, GROUP):
         hi = min(starts, lo + GROUP)
-        cnt, wv = window_group(flat_c, flat_kv, flat_v, tr, k, window, lo,
-                               hi)
+        values, valid, size, wv, cnt = window_values(
+            flat_c, flat_kv, flat_v, tr, k, window, lo, hi, seg, n_seqs,
+            want_counts=counts_pos is not None)
         window_valid[lo:hi] = wv
-        if counts_pos is not None:
+        if cnt is not None:
             counts_pos[:, lo:hi] = cnt
-        values, valid, size = dist_values(
-            cnt, wv, window, None if seg is None else seg[lo:hi], n_seqs)
         del cnt
         # a window's count moves by at most one from its neighbour's
         h = histogram.histogram(values, valid, size, "repeats")

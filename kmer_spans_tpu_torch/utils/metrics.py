@@ -131,6 +131,7 @@ COUNTERS = (
     ("spans.pipeline", "graph_captures"),
     ("parallel.window_stream", "chunks"),
     ("parallel.window_stream", "window_starts"),
+    ("ops.window", "window_counts_launches"),
 )
 
 

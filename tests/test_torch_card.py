@@ -597,11 +597,14 @@ def test_windowed_counts_kernel_matches_plain_and_cpu(card, with_positions,
             with_positions=with_positions, start_limit=39 * 8192)
 
     before = histogram.histogram_launches
+    before_w = window.window_counts_launches
     got = run(card)
     torch.cuda.synchronize()
     assert histogram.histogram_launches == before + 3  # a launch a group
+    assert window.window_counts_launches == before_w + 3
     want_cpu = run(torch.device("cpu"))
     monkeypatch.setattr(histogram, "histogram", histogram_plain)
+    monkeypatch.setattr(window, "window_values", window.window_values_plain)
     want = run(card)
     for g, w, c in zip(got, want, want_cpu):
         if w is None:
@@ -611,13 +614,21 @@ def test_windowed_counts_kernel_matches_plain_and_cpu(card, with_positions,
 
 
 def test_window_api_on_card_equals_cpu(card):
+    from kmer_spans_tpu_torch.ops import window
+    from kmer_spans_tpu_torch.parallel import window_stream
+
     seqs = ["".join("ACTGN"[b] for b in _window_genome(s, n))
             for s, n in ((2, 300_000), (3, 70_000))]
     kmers = api.kmer_seq(2)
     before = histogram.histogram_launches
+    before_w = window.window_counts_launches
+    chunks = window_stream.chunks
     got = api.window_kmer_dist(seqs, kmers, 200, freq=False, ret_flag=1,
                                device=card)
-    assert histogram.histogram_launches > before
+    # a chunk is one group of starts: one launch of each kernel
+    assert histogram.histogram_launches - before == \
+        window_stream.chunks - chunks == 2
+    assert window.window_counts_launches - before_w == 2
     want = api.window_kmer_dist(seqs, kmers, 200, freq=False, ret_flag=1,
                                 device="cpu")
     assert np.array_equal(got.dist, want.dist)
@@ -630,6 +641,175 @@ def test_window_api_on_card_equals_cpu(card):
     assert np.array_equal(got.dist, want.dist)
     for g, w in zip(got.scores, want.scores):
         assert np.array_equal(g, w)
+
+
+def _window_flats(card, seed, n, k, block=8192, runs=()):
+    """The flat codes, k-mer validity and base validity of a seeded
+    sequence of n bases (a multiple of block) on the card, with sparse Ns,
+    the N runs ``runs`` ((start, length)) and a 3000-base AT island."""
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+
+    arr = _window_genome(seed, n)
+    for a, b in runs:
+        arr[a:a + b] = 4
+    nb = to_tensor(arr, card)
+    b2, v2 = (nb & 3).reshape(-1, block), (nb < 4).reshape(-1, block)
+    codes, kv = blocked_codes(b2, v2, k)
+    return codes.reshape(-1), kv.reshape(-1), v2.reshape(-1)
+
+
+def _tracked_from(flat_c, flat_kv, T, seed):
+    """T tracked codes drawn from the valid k-mers present (so that every
+    row counts something), the last T // 4 of them repeats of others."""
+    rng = np.random.default_rng(seed)
+    present = flat_c[flat_kv].cpu().numpy()
+    tr = rng.choice(present, T)
+    dup = T // 4
+    if dup:
+        tr[T - dup:] = tr[rng.integers(0, T - dup, dup)]
+    return to_tensor(tr.astype(np.int32), flat_c.device)
+
+
+def _window_values_equal(flat_c, flat_kv, flat_v, tracked, k, window, lo,
+                         hi, seg=None, n_seqs=None):
+    """window_values against its plain version on the same CUDA tensors,
+    with counts and without, one kernel launch each."""
+    from kmer_spans_tpu_torch.ops import window as wmod
+
+    args = (flat_c, flat_kv, flat_v, tracked, k, window, lo, hi, seg, n_seqs)
+    for want_counts in (False, True):
+        before = wmod.window_counts_launches
+        got = wmod.window_values(*args, want_counts=want_counts)
+        torch.cuda.synchronize()
+        assert wmod.window_counts_launches == before + 1
+        want = wmod.window_values_plain(*args, want_counts=want_counts)
+        assert got[2] == want[2]
+        for name, g, w in zip(("values", "valid", "wv", "cnt"),
+                              got[:2] + got[3:], want[:2] + want[3:]):
+            if w is None:
+                assert g is None, name
+            else:
+                assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_window_values_full_group(card):
+    """16 dimers at window 200 over one full group of 2^22 starts with its
+    lookahead: the window cell's chunk shape."""
+    from kmer_spans_tpu_torch.ops.window import GROUP
+
+    c, kv, v = _window_flats(card, 11, GROUP + 8192, 2)
+    tracked = torch.arange(16, dtype=torch.int32, device=card)
+    _window_values_equal(c, kv, v, tracked, 2, 200, 0, GROUP)
+
+
+@pytest.mark.parametrize("T", [1, 3, 17, 40])
+def test_window_values_tracked_rows(card, T):
+    """Any number of tracked rows, repeats of one code among them."""
+    c, kv, v = _window_flats(card, 20 + T, 40 * 8192, 3)
+    tracked = _tracked_from(c, kv, T, T)
+    _window_values_equal(c, kv, v, tracked, 3, 50, 0, 39 * 8192 + 5)
+
+
+@pytest.mark.parametrize("k", [1, 5, 12, 15])
+def test_window_values_k(card, k):
+    c, kv, v = _window_flats(card, 30 + k, 32 * 8192, k,
+                             runs=((100_000, 5000),))
+    tracked = _tracked_from(c, kv, 8, k)
+    for window in (2 * k, 2 * k + 37, 200):
+        _window_values_equal(c, kv, v, tracked, k, window, 0, 31 * 8192)
+
+
+@pytest.mark.parametrize("window", [4, 57, 200, 201, 1023, 1025, 4096, 4097,
+                                    16384, 16385, 70_000])
+def test_window_values_windows(card, window):
+    """Windows from 2k up, across the run sizes the kernel picks (1024
+    starts a sub-tile, up to 16 of them, the first window read from
+    shared memory up to a run's length and from L2 beyond)."""
+    c, kv, v = _window_flats(card, 40, 48 * 8192, 2, runs=((9000, 300),))
+    tracked = _tracked_from(c, kv, 5, 5)
+    _window_values_equal(c, kv, v, tracked, 2, window, 0, 40 * 8192)
+
+
+def test_window_values_edges(card):
+    """N runs, the padded tail past n, starts from an unaligned lo and a
+    start_limit in the middle of a sub-tile (m not a multiple of 4)."""
+    n = 24 * 8192
+    c, kv, v = _window_flats(card, 50, n, 2,
+                             runs=((0, 17), (4000, 1), (70_000, 20_000)))
+    tracked = torch.arange(16, dtype=torch.int32, device=card)
+    for lo, hi in ((0, n), (3, n - 1), (0, 12_345), (1, 2), (777, 777 + 4099),
+                   (n - 150, n)):
+        _window_values_equal(c, kv, v, tracked, 2, 200, lo, hi)
+
+
+@pytest.mark.parametrize("with_positions", [False, True])
+def test_windowed_counts_edges_on_card(card, with_positions, monkeypatch):
+    """windowed_counts_device with a start_limit mid-tile, several groups
+    and a window of 70,000 (without positions: the int16 matrix stops at
+    32,765), against its plain chain on the card."""
+    from kmer_spans_tpu_torch.ops import window
+
+    monkeypatch.setattr(window, "GROUP", 1 << 16)
+    n = 40 * 8192
+    c, kv, v = _window_flats(card, 60, n, 2, runs=((200_000, 40),))
+    c2, kv2, v2 = (x.reshape(-1, 8192) for x in (c, kv, v))
+    tracked = torch.arange(16, dtype=torch.int32, device=card)
+    for w, limit in ((200, n - 8192 - 3), (70_000, None)):
+        if with_positions and w > 32_765:
+            continue
+        starts = n if limit is None else limit
+        before = window.window_counts_launches
+        got = window.windowed_counts_device(
+            c2, kv2, v2, tracked, 2, w, with_positions=with_positions,
+            start_limit=limit)
+        torch.cuda.synchronize()
+        groups = -(-starts // (1 << 16))
+        assert window.window_counts_launches == before + groups
+        with monkeypatch.context() as mp:
+            mp.setattr(window, "window_values", window.window_values_plain)
+            want = window.windowed_counts_device(
+                c2, kv2, v2, tracked, 2, w, with_positions=with_positions,
+                start_limit=limit)
+        for g, x in zip(got, want):
+            assert (g is None and x is None) or torch.equal(g, x)
+
+
+def test_window_values_cohort(card, monkeypatch):
+    """The cohort mode: 154 scaffolds, single-N separators, each start's
+    scaffold in seg, (scaffold, kmer, count) indices; one group and the
+    whole windowed_counts_device(seg2d=...) call."""
+    from kmer_spans_tpu_torch.ops import window
+    from kmer_spans_tpu_torch.ops.blocked import blocked_codes
+
+    rng = np.random.default_rng(154)
+    lengths = np.minimum(400_000, 20_000 + rng.pareto(1.2, 154) * 20_000)
+    lengths = lengths.astype(np.int64)
+    npad = -(-(int(lengths.sum()) + 154) // 8192) * 8192
+    cat = np.full(npad, 4, np.uint8)
+    seg = np.full(npad, 153, np.int32)
+    pos = 0
+    for i, L in enumerate(lengths):
+        cat[pos:pos + L] = rng.integers(0, 4, L)
+        seg[pos:pos + L + 1] = i
+        pos += int(L) + 1
+    nb = to_tensor(cat, card)
+    b2, v2 = (nb & 3).reshape(-1, 8192), (nb < 4).reshape(-1, 8192)
+    codes, kv = blocked_codes(b2, v2, 2)
+    seg2 = to_tensor(seg, card).reshape(-1, 8192)
+    tracked = torch.arange(16, dtype=torch.int32, device=card)
+    _window_values_equal(codes.reshape(-1), kv.reshape(-1), v2.reshape(-1),
+                         tracked, 2, 200, 0, window.GROUP, seg2.reshape(-1),
+                         154)
+    before = window.window_counts_launches
+    got = window.windowed_counts_device(codes, kv, v2, tracked, 2, 200,
+                                        seg2d=seg2, n_seqs=154)
+    torch.cuda.synchronize()
+    assert window.window_counts_launches == before + -(-npad // window.GROUP)
+    monkeypatch.setattr(window, "window_values", window.window_values_plain)
+    want = window.windowed_counts_device(codes, kv, v2, tracked, 2, 200,
+                                         seg2d=seg2, n_seqs=154)
+    for g, x in zip(got, want):
+        assert (g is None and x is None) or torch.equal(g, x)
 
 
 @pytest.mark.parametrize("k", [2, 8])

@@ -284,3 +284,81 @@ def test_windowed_distributions_copy_equals_the_reference():
     got = windowed_distributions(seq, tracked, 2, 30, counts_pos=got_c)
     want = ref_oracle_wd(seq, tracked, 2, 30, counts_pos=want_c)
     assert np.array_equal(got, want) and np.array_equal(got_c, want_c)
+
+
+def _flats(seed, n, k, T, S=None):
+    """Random flat codes, k-mer validity and base validity of n positions,
+    T tracked codes (the last of them a repeat), and with S each
+    position's scaffold."""
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.integers(0, 4 ** k, n).astype(np.int32))
+    kv = torch.from_numpy(rng.random(n) < 0.9)
+    v = torch.from_numpy(rng.random(n) < 0.98)
+    tr = rng.integers(0, 4 ** k, T).astype(np.int32)
+    tr[-1] = tr[0]
+    seg = None if S is None else torch.from_numpy(
+        np.sort(rng.integers(0, S, n)).astype(np.int32))
+    return c, kv, v, torch.from_numpy(tr), seg
+
+
+@pytest.mark.parametrize("want_counts", [False, True])
+@pytest.mark.parametrize("S", [None, 7])
+@pytest.mark.parametrize("seed", range(3))
+def test_window_values_plain_route_equals_the_chain(seed, S, want_counts):
+    """On a CPU tensor window_values is window_group then dist_values, and
+    launches nothing."""
+    k, w = 2 + seed, 9 + 11 * seed
+    c, kv, v, tr, seg = _flats(seed, 3000, k, 5, S)
+    lo, hi = 17 * seed, 3000 - 5 * seed
+    before = window.window_counts_launches
+    got = window.window_values(c, kv, v, tr, k, w, lo, hi, seg, S,
+                               want_counts=want_counts)
+    assert window.window_counts_launches == before
+    cnt, wv = window.window_group(c, kv, v, tr, k, w, lo, hi)
+    values, valid, size = window.dist_values(
+        cnt, wv, w, None if seg is None else seg[lo:hi], S)
+    assert got[2] == size
+    for g, x in zip(got[:2] + got[3:],
+                    (values, valid, wv, cnt if want_counts else None)):
+        assert (g is None and x is None) or torch.equal(g, x)
+
+
+def _bad(case):
+    c, kv, v, tr, seg = _flats(9, 256, 2, 4, 3)
+    args = dict(flat_c=c, flat_kv=kv, flat_v=v, tracked=tr, k=2, window=10,
+                lo=0, hi=256, seg=seg, n_seqs=3)
+    meta = torch.device("meta")
+    args.update({
+        "codes int64": dict(flat_c=c.long()),
+        "kv uint8": dict(flat_kv=kv.to(torch.uint8)),
+        "tracked int64": dict(tracked=tr.long()),
+        "seg int64": dict(seg=seg.long()),
+        "v shorter": dict(flat_v=v[:-1]),
+        "seg shorter": dict(seg=seg[1:]),
+        "codes 2-D": dict(flat_c=c.reshape(16, 16)),
+        "tracked 2-D": dict(tracked=tr.reshape(2, 2)),
+        "tracked elsewhere": dict(tracked=tr.to(meta)),
+        "codes elsewhere": dict(flat_c=c.to(meta)),
+        "all on meta": dict(flat_c=c.to(meta), flat_kv=kv.to(meta),
+                            flat_v=v.to(meta), tracked=tr.to(meta),
+                            seg=seg.to(meta)),
+        "seg without n_seqs": dict(n_seqs=None),
+        "window below k": dict(window=1),
+        "starts past n": dict(hi=257),
+    }[case])
+    return args
+
+
+@pytest.mark.parametrize("case,error", [
+    ("codes int64", TypeError), ("kv uint8", TypeError),
+    ("tracked int64", TypeError), ("seg int64", TypeError),
+    ("v shorter", ValueError), ("seg shorter", ValueError),
+    ("codes 2-D", ValueError), ("tracked 2-D", ValueError),
+    ("tracked elsewhere", ValueError), ("codes elsewhere", ValueError),
+    ("all on meta", ValueError), ("seg without n_seqs", ValueError),
+    ("window below k", ValueError), ("starts past n", ValueError)])
+def test_window_values_refuses(case, error):
+    """Wrong dtypes, mismatched shapes and tensors on two devices raise
+    before any work, on either route."""
+    with pytest.raises(error):
+        window.window_values(**_bad(case))
