@@ -12,7 +12,8 @@
 // order, same f64 folds as the original (ks_pack alone differs: it
 // returns the number of bytes it wrote, where the original returns
 // nothing; ks_replay_scores adds two optional outputs, the scan counts
-// and the candidates, for spans/extract.py).  ks_replay_tr, the transition-
+// and the candidates, for spans/extract.py, and ks_replay_table is its
+// fold reading the scores from a table itself).  ks_replay_tr, the transition-
 // score replay, is the C form of the JAX package's spans/tr_pipeline.py
 // replay_tr_segment.
 //
@@ -263,14 +264,23 @@ int64_t ks_replay_packed(const uint32_t* cand_words, const uint8_t* scored,
     return nreg;
 }
 
+}  // extern "C"
+
+namespace {
+
 // ---------------------------------------------------------------------------
-// Replay from PRECOMPUTED per-position scores: the one fold of every host
-// finisher of the device paths (spans/extract.py extract_spans), the
-// k >= 13 path among them, where the host computes exact f64 ranks only
-// for candidate codes and never holds a 4^k table.  The
-// same restartable reference scan as ks_replay_packed, s[i] already =
-// ranks[code_i] - threshold at scored positions (anything at unscored
-// ones: they reset the run; a -inf score gives S <= 0, which resets too).
+// The one fold of every host finisher of the device paths (spans/extract.py
+// extract_spans): the same restartable reference scan as ks_replay_packed
+// over each run of scored positions of a stretch of n positions, reading
+// position p's score and mask through one of two sources:
+//   FlatScores  precomputed f64 scores (ks_replay_scores), s[p] already =
+//               ranks[code_p] - threshold at scored positions (anything at
+//               unscored ones: they reset the run);
+//   TableRows   the codes and mask in place, in rows of 2^shift positions
+//               (ks_replay_table): s = table[code_p] - threshold, the same
+//               f64 subtraction, at scored positions only, so the codes of
+//               unscored positions are never read.
+// A -inf score gives S <= 0, which resets the running score too.
 //
 // Two optional outputs, each skipped where its pointer is null:
 //   visits     int64 difference array of length n + 1 (added into): +1 at
@@ -284,21 +294,50 @@ int64_t ks_replay_packed(const uint32_t* cand_words, const uint8_t* scored,
 //              last positive position at least min_width past their first
 //              and max S >= min_score: the candidate excursions.
 // ---------------------------------------------------------------------------
-int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
-                         int64_t min_width, double min_score,
-                         int64_t base_pos,
-                         int64_t* out_beg, int64_t* out_end,
-                         double* out_score, int64_t capacity,
-                         int64_t* visits, int64_t* candidates) {
+struct FlatScores {
+    const double* s;
+    const uint8_t* scored;
+    bool is_scored(int64_t p) const { return scored[p]; }
+    double score(int64_t p) const { return s[p]; }
+    void ahead(int64_t, int64_t) const {}
+};
+
+struct TableRows {
+    const int32_t* const* codes;  // the stretch's rows, in order
+    const uint8_t* const* scored;
+    int32_t shift;                // a row holds 1 << shift positions
+    const double* table;
+    double threshold;
+    int64_t col(int64_t p) const { return p & ((int64_t(1) << shift) - 1); }
+    bool is_scored(int64_t p) const { return scored[p >> shift][col(p)]; }
+    double score(int64_t p) const {
+        return table[codes[p >> shift][col(p)]] - threshold;
+    }
+    // start loading the table entry of position q early: a 4^k table far
+    // beyond the caches would otherwise cost one memory latency a position
+    // (the code there may be junk: a prefetch never faults)
+    void ahead(int64_t q, int64_t n) const {
+        if (q < n) __builtin_prefetch(table + codes[q >> shift][col(q)]);
+    }
+};
+
+// positions between a prefetch of a table entry and its use
+constexpr int64_t kAhead = 32;
+
+template <class Src>
+int64_t replay_fold(const Src& src, int64_t n, int64_t min_width,
+                    double min_score, int64_t base_pos, int64_t* out_beg,
+                    int64_t* out_end, double* out_score, int64_t capacity,
+                    int64_t* visits, int64_t* candidates) {
     int64_t nreg = 0;
     int64_t tried = 0;
     int64_t i = 0;
     while (i < n) {
-        while (i < n && !scored[i]) ++i;
+        while (i < n && !src.is_scored(i)) ++i;
         if (i >= n) break;
         int64_t a = i;
         int64_t b = a;
-        while (b < n && scored[b]) ++b;
+        while (b < n && src.is_scored(b)) ++b;
         --b;
         i = b + 1;
         if (visits) { ++visits[a]; --visits[b + 1]; }
@@ -310,7 +349,8 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
             int64_t p = resume;
             bool jumped = false;
             for (; p <= b; ++p) {
-                S += s[p];
+                src.ahead(p + kAhead, n);
+                S += src.score(p);
                 if (S <= 0.0) {
                     S = 0.0;
                     if (u >= 0) {
@@ -353,6 +393,47 @@ int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
     }
     if (candidates) *candidates += tried;
     return nreg;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The fold over precomputed per-position scores: the k >= 13 paths among
+// its callers compute exact f64 ranks only for candidate codes and never
+// hold a 4^k table.
+int64_t ks_replay_scores(const double* s, const uint8_t* scored, int64_t n,
+                         int64_t min_width, double min_score,
+                         int64_t base_pos,
+                         int64_t* out_beg, int64_t* out_end,
+                         double* out_score, int64_t capacity,
+                         int64_t* visits, int64_t* candidates) {
+    return replay_fold(FlatScores{s, scored}, n, min_width, min_score,
+                       base_pos, out_beg, out_end, out_score, capacity,
+                       visits, candidates);
+}
+
+// The fold that reads its scores from the caller's table: a stretch of
+// nrows rows of `block` positions (a power of two), row r's codes and mask
+// (int32 and 0/1 bytes) read in place at code_rows[r] and mask_rows[r].
+// Every scored code must index `table`.  Returns -1, and folds nothing,
+// where block is not a power of two.
+int64_t ks_replay_table(const int32_t* const* code_rows,
+                        const uint8_t* const* mask_rows, int64_t nrows,
+                        int64_t block, const double* table, double threshold,
+                        int64_t min_width, double min_score,
+                        int64_t base_pos,
+                        int64_t* out_beg, int64_t* out_end,
+                        double* out_score, int64_t capacity,
+                        int64_t* visits, int64_t* candidates) {
+    if (block <= 0 || (block & (block - 1))) return -1;
+    int32_t shift = 0;
+    while ((int64_t(1) << shift) < block) ++shift;
+    return replay_fold(TableRows{code_rows, mask_rows, shift, table,
+                                 threshold},
+                       nrows * block, min_width, min_score, base_pos,
+                       out_beg, out_end, out_score, capacity, visits,
+                       candidates);
 }
 
 // ---------------------------------------------------------------------------

@@ -368,12 +368,18 @@ def finish_weight_spans(
 
     pull_fn / nbases_dev: the pipeline's ``.pull`` and the genome on the
     device.  Candidate blocks the top C missed are pulled in batches of C
-    blocks, one device gather each; without them such a miss returns
-    fallback=True.  A weight of -inf resets the replay's running score to
-    0, as in the sequential reference.
+    blocks, one device gather each, kept beside the top C's rows in one
+    ``utils/native.RowStore``; without them such a miss returns
+    fallback=True.  Each candidate stretch folds in place: the host
+    library reads its rows through one row index a block and takes
+    ``weights[code] - threshold`` at each scored position itself, so no
+    per-sequence table and no joined stretch is built.  A weight of -inf
+    resets the replay's running score to 0, as in the sequential
+    reference.
 
     Spans (utils/metrics.py): ``finish.weight`` the call, ``finish.pull``
-    each batch, ``finish.assemble`` each candidate stretch's scores.
+    each batch, ``finish.assemble`` what each candidate stretch prepares
+    for its fold (its row index).
     """
     global pulled_blocks
     block_max, block_last = compose_summaries_exact(
@@ -394,9 +400,12 @@ def finish_weight_spans(
     cand = (run_max >= thresh) & (run_nblocks * block > min_width)
     if not cand.any():
         return SpanPipelineResult(regions=[], fallback=False)
+    store = native.RowStore(block)
+    store.add(out["codes"], out["scored"])
+    row_of = np.zeros(nb, np.int64)  # a candidate block's row in the store
+    row_of[top_idx] = np.arange(top_idx.shape[0])
     have = np.zeros(nb, bool)
     have[top_idx] = True
-    pulled: dict[int, tuple] = {}
     missing = np.nonzero(cand & ~have)[0]
     if missing.size:
         if pull_fn is None or nbases_dev is None:
@@ -409,24 +418,16 @@ def finish_weight_spans(
             idxp = np.full(C, batch[0], np.int64)
             idxp[:batch.size] = batch
             c_, s_ = pull_fn(nbases_dev, torch.from_numpy(idxp))
-            c_, s_ = c_.cpu().numpy(), s_.cpu().numpy()
-            for j, b in enumerate(batch):
-                pulled[int(b)] = (c_[j], s_[j])
+            # each batch keeps its own small host copy: one array for all
+            # pulled rows would be hundreds of MB of fresh pages on a
+            # chromosome, faulted in again at every call
+            first = store.add(c_[:batch.size].cpu().numpy(),
+                              s_[:batch.size].cpu().numpy())
+            row_of[batch] = first + np.arange(batch.size)
             if sp is not None:
                 metrics.end(sp)
 
-    pos_in_pull = {int(bidx): i for i, bidx in enumerate(top_idx)}
-    codes = np.asarray(out["codes"])
-    scored = np.asarray(out["scored"])
-    w64 = np.asarray(weights, dtype=np.float64) - threshold
-
-    def block_data(b):
-        if b in pulled:
-            return pulled[b]
-        i = pos_in_pull[b]
-        return codes[i], scored[i]
-
-    size = w64.shape[0]
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
     regions = []
     i = 0
     while i < nb:
@@ -437,31 +438,25 @@ def finish_weight_spans(
         while j + 1 < nb and cand[j + 1]:
             j += 1
         sp = metrics.begin("finish.assemble") if metrics.enabled else None
-        pairs = [block_data(b) for b in range(i, j + 1)]
-        c_flat = np.concatenate([p[0] for p in pairs])
-        sc_flat = np.concatenate([p[1] for p in pairs])
-        s_flat = np.where(sc_flat, w64[c_flat], 0.0)
-        if sp is not None:
-            metrics.end(sp)
-        base_pos = i * block
+        rows = row_of[i:j + 1]
         visits = None
         if scan_counts is not None:
-            visits = np.zeros(s_flat.shape[0] + 1, dtype=np.int64)
-        regs = extract_spans(s_flat, sc_flat, min_width, min_score,
-                             seq_id=seq_id, visits_full=visits)
-        regions.extend(
-            (sid, beg + base_pos, end + base_pos, sc)
-            for sid, beg, end, sc in regs
-        )
+            visits = np.zeros(rows.shape[0] * block + 1, dtype=np.int64)
+        if sp is not None:
+            metrics.end(sp)
+        regions.extend(extract_spans(
+            (store, weights, threshold), None, min_width, min_score,
+            seq_id=seq_id, visits_full=visits, base_pos=i * block,
+            rows=rows))
         if scan_counts is not None:
             # the device histogram counted every scored position once; add
-            # only the extra visits of jump-back rescans
-            rescans = np.where(sc_flat, np.cumsum(visits[:-1]) - 1, 0)
-            sel = rescans > 0
-            if sel.any():
-                scan_counts += np.bincount(
-                    c_flat[sel], weights=rescans[sel], minlength=size
-                ).astype(np.int64)
+            # only the extra visits of jump-back rescans (unscored
+            # positions are never visited: their count reads 0)
+            rescans = np.cumsum(visits[:-1]) - 1
+            sel = np.nonzero(rescans > 0)[0]
+            if sel.size:
+                np.add.at(scan_counts, store.codes(rows).reshape(-1)[sel],
+                          rescans[sel])
         i = j + 1
     return SpanPipelineResult(regions=regions, fallback=False)
 

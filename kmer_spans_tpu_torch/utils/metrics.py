@@ -127,6 +127,7 @@ COUNTERS = (
     ("spans.extract", "replays"),
     ("spans.extract", "replay_emits"),
     ("spans.extract", "native_folds"),
+    ("spans.extract", "table_folds"),
     ("spans.pipeline", "graph_steps"),
     ("spans.pipeline", "graph_captures"),
     ("parallel.window_stream", "chunks"),

@@ -13,7 +13,8 @@ build is not remembered: the next call tries again.  The api's
 Copied from ``kmer_spans_tpu/utils/native.py`` for the entry points the
 port calls: same arguments, same results (``replay_scores`` adds two
 optional outputs, scan counts and candidates, and sizes its region
-buffers so that it folds once).  ``find_spans``, ``count_spectrum`` and
+buffers so that it folds once; ``replay_table``, the port's own, is the
+same fold reading its scores from a table).  ``find_spans``, ``count_spectrum`` and
 ``host_spectrum_sparse`` serve the api's ``backend="native"``;
 ``pack_nbases`` is bound as the reference binds it, and no caller of the
 port uses it yet; the rest serve the host finishers of the device paths
@@ -57,6 +58,8 @@ _SIGNATURES = {
                          _I64, _P, _P, _P, _I64),
     "ks_replay_scores": (_P, _P, _I64, _I64, _F64, _I64, _P, _P, _P, _I64,
                          _P, _P),
+    "ks_replay_table": (_P, _P, _I64, _I64, _P, _F64, _I64, _F64, _I64, _P,
+                        _P, _P, _I64, _P, _P),
     "ks_replay_tr": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _P, _P, _P,
                      _I64),
 }
@@ -238,6 +241,30 @@ def rank_chain(counts: np.ndarray, total: int) -> np.ndarray:
     return ranks
 
 
+def _fold_outputs(n, min_width, visits, candidates):
+    """Check the fold's optional outputs and size its region buffers:
+    len // (min_width + 1) + 1 entries, since regions never overlap and
+    each spans at least min_width + 1 positions, so one fold always
+    suffices."""
+    for out, size in ((visits, n + 1), (candidates, 1)):
+        if out is not None and (out.dtype != np.int64 or out.shape != (size,)
+                                or not out.flags.c_contiguous):
+            raise ValueError(f"an output must be contiguous int64 [{size}]")
+    cap = n // (max(min_width, 0) + 1) + 1
+    return (np.empty(cap, dtype=np.int64), np.empty(cap, dtype=np.int64),
+            np.empty(cap, dtype=np.float64), cap)
+
+
+def _mask(scored: np.ndarray) -> np.ndarray:
+    scored = np.ascontiguousarray(scored)
+    return scored.view(np.uint8) if scored.dtype == np.bool_ else \
+        scored.astype(np.uint8)
+
+
+def _ptr(a: np.ndarray | None):
+    return None if a is None else a.ctypes.data
+
+
 def replay_scores(
     s: np.ndarray, scored: np.ndarray, min_width: int, min_score: float,
     base_pos: int, visits: np.ndarray | None = None,
@@ -253,31 +280,101 @@ def replay_scores(
     ``visits``, an int64 difference array of len(s) + 1 whose prefix sum
     counts each position's scans (rescans included); ``candidates``, an
     int64 array of one element that gains the count of candidate
-    excursions (those spans/extract.py replays).  The region buffers hold
-    len(s) // (min_width + 1) + 1 entries: regions never overlap and each
-    spans at least min_width + 1 positions, so one fold always suffices.
+    excursions (those spans/extract.py replays).
     """
     lib = _load()
     s = np.ascontiguousarray(s, dtype=np.float64)
-    scored = np.ascontiguousarray(scored)
-    scored = scored.view(np.uint8) if scored.dtype == np.bool_ else \
-        scored.astype(np.uint8)
+    scored = _mask(scored)
     n = s.shape[0]
     if scored.shape != (n,):
         raise ValueError("scored must have one entry a score")
-    for out, size in ((visits, n + 1), (candidates, 1)):
-        if out is not None and (out.dtype != np.int64 or out.shape != (size,)
-                                or not out.flags.c_contiguous):
-            raise ValueError(f"an output must be contiguous int64 [{size}]")
-    cap = n // (max(min_width, 0) + 1) + 1
-    beg = np.empty(cap, dtype=np.int64)
-    end = np.empty(cap, dtype=np.int64)
-    score = np.empty(cap, dtype=np.float64)
+    beg, end, score, cap = _fold_outputs(n, min_width, visits, candidates)
     nreg = lib.ks_replay_scores(
         s.ctypes.data, scored.ctypes.data, n, min_width, min_score,
         base_pos, beg.ctypes.data, end.ctypes.data, score.ctypes.data, cap,
-        None if visits is None else visits.ctypes.data,
-        None if candidates is None else candidates.ctypes.data)
+        _ptr(visits), _ptr(candidates))
+    assert nreg <= cap  # disjoint regions of min_width + 1 positions
+    return beg[:nreg], end[:nreg], score[:nreg]
+
+
+class RowStore:
+    """Rows of ``block`` positions, their int32 codes and bool mask, kept
+    where they lie in several arrays under one row index: the rows
+    ``replay_table`` reads.  The store keeps each added array alive and
+    the address of each of its rows."""
+
+    def __init__(self, block: int):
+        self.block = block
+        self.nrows = 0
+        self._arrays = []
+        self._firsts = []
+        self._addr = []
+        self._joined = None
+
+    def add(self, codes: np.ndarray, scored: np.ndarray) -> int:
+        """Append the rows of codes and scored ([R, block] int32 and bool,
+        not copied where they already are contiguous); returns the row
+        index of the first."""
+        codes = np.ascontiguousarray(codes, dtype=np.int32)
+        scored = _mask(scored)
+        if codes.ndim != 2 or codes.shape[1] != self.block \
+                or scored.shape != codes.shape:
+            raise ValueError(f"codes and scored must be [R, {self.block}]")
+        first = self.nrows
+        r = np.arange(codes.shape[0], dtype=np.int64)
+        self._arrays.append((codes, scored))
+        self._firsts.append(first)
+        self._addr.append((codes.ctypes.data + r * codes.strides[0],
+                           scored.ctypes.data + r * scored.strides[0]))
+        self.nrows += codes.shape[0]
+        self._joined = None
+        return first
+
+    def addresses(self, rows: np.ndarray):
+        """The code and mask addresses of ``rows`` (an IndexError for an
+        index beyond the store; a negative one counts from its end)."""
+        if self._joined is None:
+            self._joined = (np.concatenate([a[0] for a in self._addr]),
+                            np.concatenate([a[1] for a in self._addr]))
+        return self._joined[0][rows], self._joined[1][rows]
+
+    def codes(self, rows: np.ndarray) -> np.ndarray:
+        """The code rows ``rows``, joined: [len(rows), block] int32."""
+        which = np.searchsorted(self._firsts, rows, side="right") - 1
+        return np.stack([self._arrays[a][0][r - self._firsts[a]]
+                         for a, r in zip(which, rows)])
+
+
+def replay_table(
+    store: RowStore, rows: np.ndarray, table: np.ndarray, threshold: float,
+    min_width: int, min_score: float, base_pos: int,
+    visits: np.ndarray | None = None, candidates: np.ndarray | None = None,
+):
+    """``replay_scores`` over scores the library reads itself:
+    ``table[code] - threshold`` in f64 at each scored position, the same
+    subtraction and the same fold, so the same results bit for bit.
+
+    store, rows: the stretch's rows in order, indices into ``store`` (its
+    block a power of two), read in place, so the stretch has len(rows) *
+    block positions.  Every scored code must index ``table`` (f64, taken
+    as it is where it is contiguous f64); the codes of unscored positions
+    are never read.  visits and candidates as in ``replay_scores``.
+    """
+    lib = _load()
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.ndim != 1:
+        raise ValueError("rows must be 1-D")
+    code_rows, mask_rows = store.addresses(rows)
+    table = np.ascontiguousarray(table, dtype=np.float64)
+    n = rows.shape[0] * store.block
+    beg, end, score, cap = _fold_outputs(n, min_width, visits, candidates)
+    nreg = lib.ks_replay_table(
+        code_rows.ctypes.data, mask_rows.ctypes.data, rows.shape[0],
+        store.block, table.ctypes.data, float(threshold), min_width,
+        min_score, base_pos, beg.ctypes.data, end.ctypes.data,
+        score.ctypes.data, cap, _ptr(visits), _ptr(candidates))
+    if nreg < 0:
+        raise ValueError("a row must hold a power of two of positions")
     assert nreg <= cap  # disjoint regions of min_width + 1 positions
     return beg[:nreg], end[:nreg], score[:nreg]
 

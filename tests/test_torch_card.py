@@ -509,6 +509,34 @@ def test_low_comp_regions_on_a_fragmented_assembly(card):
     assert np.array_equal(got.regions, want.regions)
 
 
+def test_exact_k12_pulls_and_folds_from_the_table(card):
+    """Three sequences (850,000 bases) at k = 12, the longest with a
+    low-complexity island every 3,000 bases: more candidate blocks than
+    its top C of 128, so the finish pulls the rest, and every stretch
+    folds from the 4^12 rank table.  The regions equal the native
+    library's caller's."""
+    from kmer_spans_tpu_torch.spans import extract, finish
+
+    rng = np.random.default_rng(24)
+    seqs = []
+    for n in (700_000, 60_000, 90_000):
+        arr = rng.integers(0, 4, n).astype(np.uint8)
+        arr[rng.random(n) < 0.0005] = 4
+        for s in range(500, n - 700, 3_000):
+            arr[s:s + 600] = np.tile(np.array([0, 3], np.uint8), 300)
+        seqs.append("".join("ACTGN"[b] for b in arr))
+    pulled = finish.pulled_blocks
+    folds, tables = extract.native_folds, extract.table_folds
+    got = api.kmer_low_comp_regions(seqs, 12, 100, 20.0, thr=0.75,
+                                    device=card)
+    assert finish.pulled_blocks > pulled
+    assert extract.table_folds - tables == extract.native_folds - folds > 0
+    want = api.kmer_low_comp_regions(seqs, 12, 100, 20.0, thr=0.75,
+                                     backend="native")
+    assert len(got.regions) >= 250
+    assert np.array_equal(got.regions, want.regions)
+
+
 @pytest.mark.parametrize("k", [8, 12])
 def test_exact_api_on_card_equals_cpu(card, k):
     seq = _exact_genome(k)

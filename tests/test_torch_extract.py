@@ -296,3 +296,133 @@ def test_numpy_path_equals_the_library_fold(case, min_width, min_score):
     want, _, candidates = _fold_extract(s, scored, min_width, min_score)
     assert got == want
     assert (tried, emits, folds) == (candidates, len(want), 1)
+
+
+# ------------------------------------------ the fold that reads a table
+
+def _table_stretch(k, order, block=256):
+    """A store of code rows and masks (its first half the top C's rows,
+    its second the pulled ones), a 4^k table of decimal steps with -inf
+    entries, and the rows of one stretch taken from both halves, in
+    order or not.  Planted runs of a three-code pattern whose scores
+    (1, -0.5, -0.5 after the threshold 0.25) sum to exactly 0 tie the
+    running maxima; the codes of unscored positions are junk out of the
+    table's range."""
+    rng = np.random.default_rng(k * 10 + len(order))
+    size = 1 << (2 * k)
+    table = np.round(rng.integers(-6, 5, size) / 10.0, 2)
+    table[rng.random(size) < 0.002] = -np.inf
+    hot = rng.choice(size, 3, replace=False)
+    table[hot] = (1.25, -0.25, -0.25)
+    up = rng.choice(size, 1)
+    table[up] = 1.0
+    patterns = [hot, np.concatenate([up, hot])]
+    R = 24
+    codes = rng.integers(0, size, (R, block)).astype(np.int32)
+    for r in range(R):
+        for lo in rng.choice(block, 3, replace=False):
+            n = int(rng.integers(30, 200))
+            codes[r, lo:lo + n] = np.resize(
+                patterns[rng.integers(2)], n)[:block - lo]
+    codes[:, rng.random(block) < 0.01] = 0
+    stop = rng.choice(size, 1)
+    table[stop] = -np.inf
+    codes[rng.integers(0, R, 40), rng.integers(0, block, 40)] = stop
+    scored = rng.random((R, block)) > 0.01
+    scored[3, :40] = False
+    scored[17, -5:] = False
+    junk = np.array([-(1 << 31), -1, size, size + 7, (1 << 31) - 1],
+                    np.int32)
+    codes[~scored] = rng.choice(junk, int((~scored).sum()))
+    if order == "in_order":
+        rows = np.arange(R // 2 - 4, R // 2 + 6)  # the top's tail, pulled head
+    else:
+        rows = rng.permutation(R)[:14]
+    return codes, scored, rows.astype(np.int64), table
+
+
+@pytest.mark.parametrize("order", ["in_order", "out_of_order"])
+@pytest.mark.parametrize("k", [4, 8, 12])
+def test_table_fold_equals_the_precomputed_scores(k, order):
+    """The table form of extract_spans (store, table, threshold), its rows
+    in two arrays, and the precomputed-score form over the same stretch:
+    regions (beg, end and the score's bits), scan counts, candidate
+    excursions and emissions equal; one fold each, the first counted in
+    ``table_folds``."""
+    from kmer_spans_tpu_torch.utils import native
+
+    codes, scored, rows, table = _table_stretch(k, order)
+    thr = 0.25
+    store = native.RowStore(codes.shape[1])
+    half = codes.shape[0] // 2
+    assert store.add(codes[:half], scored[:half]) == 0
+    assert store.add(codes[half:], scored[half:]) == half
+    c_flat = codes[rows].reshape(-1)
+    sc_flat = scored[rows].reshape(-1)
+    s = np.where(sc_flat, (table - thr)[np.where(sc_flat, c_flat, 0)], 0.0)
+    names = ("replays", "replay_emits", "native_folds", "table_folds")
+    got = {}
+    for form in ("table", "scores"):
+        before = [getattr(extract, n) for n in names]
+        visits = np.zeros(s.shape[0] + 1, np.int64)
+        if form == "table":
+            regs = extract.extract_spans((store, table, thr), None, 20,
+                                         2.0, seq_id=1, visits_full=visits,
+                                         base_pos=999, rows=rows)
+        else:
+            regs = extract.extract_spans(s, sc_flat, 20, 2.0, seq_id=1,
+                                         visits_full=visits, base_pos=999)
+        got[form] = (regs, visits, [getattr(extract, n) - b
+                                    for n, b in zip(names, before)])
+    (t_regs, t_visits, t_counts), (s_regs, s_visits, s_counts) = \
+        got["table"], got["scores"]
+    assert len(t_regs) > 5
+    assert [r[:3] for r in t_regs] == [r[:3] for r in s_regs]
+    assert np.array_equal(np.array([r[3] for r in t_regs]).view(np.int64),
+                          np.array([r[3] for r in s_regs]).view(np.int64))
+    assert np.array_equal(t_visits, s_visits)
+    assert t_counts == s_counts[:3] + [1] and s_counts[3] == 0
+    assert t_counts[0] >= t_counts[1] == len(t_regs)
+    assert (s == -np.inf).any() and _tied_maxima(s, sc_flat) > 0
+
+
+def _tied_maxima(s, scored):
+    """How often the clamped fold over the scored runs of ``s`` comes
+    back to its excursion's running maximum, exactly."""
+    ties, S, mx = 0, 0.0, 0.0
+    for v, on in zip(s, scored):
+        S = max(S + v, 0.0) if on else 0.0
+        if S == 0.0:
+            mx = 0.0
+        elif S == mx:
+            ties += 1
+        mx = max(mx, S)
+    return ties
+
+
+def test_table_fold_refuses_rows_it_cannot_read():
+    """A row index beyond the store, rows of other than [R, block], or a
+    block of other than a power of two positions: the binding raises and
+    the library folds nothing; a store of two arrays reads each row where
+    it lies, the codes joined in the rows' order."""
+    from kmer_spans_tpu_torch.utils import native
+
+    codes = np.zeros((2, 256), np.int32)
+    scored = np.ones((2, 256), bool)
+    table = np.ones(4)
+    store = native.RowStore(256)
+    store.add(codes[:1], scored[:1])
+    store.add(codes[1:] + 1, scored[1:])
+    with pytest.raises(IndexError):
+        native.replay_table(store, np.array([0, 2]), table, 0.5, 10, 2.0, 0)
+    with pytest.raises(ValueError):
+        store.add(codes[:, :255], scored[:, :255])
+    odd = native.RowStore(255)
+    odd.add(codes[:, :255], scored[:, :255])
+    with pytest.raises(ValueError):
+        native.replay_table(odd, np.array([0]), table, 0.5, 10, 2.0, 0)
+    beg, _, score = native.replay_table(store, np.array([1, 0]), table, 0.5,
+                                        10, 2.0, 0)
+    assert beg.tolist() == [1] and score.tolist() == [256.0]
+    assert store.codes(np.array([1, 0, 1])).tolist() == \
+        [[1] * 256, [0] * 256, [1] * 256]

@@ -101,6 +101,8 @@ def test_one_stage_and_each_run_spans_nest_under_the_call():
     folds = _children(rec, fin)
     assert folds and set(folds) == {"extract.fold"}
     assert rec.counters["spans.extract:native_folds"] == len(folds)
+    # the fast finish folds precomputed scores: no fold reads a table
+    assert rec.counters["spans.extract:table_folds"] == 0
     for s in sp:
         assert s.t0 <= s.t1
         if s.parent >= 0:
@@ -155,6 +157,22 @@ def test_the_exact_mode_records_no_fast_span():
     assert not any(s.name.startswith("fast.") for s in rec.spans)
     assert rec.counters["api:fast_runs"] == 0
     assert rec.counters["api:fast_pulled_bytes"] == 0
+    assert rec.counters["spans.extract:table_folds"] == \
+        rec.counters["spans.extract:native_folds"] > 0
+
+
+@pytest.mark.parametrize("k", [3, 8, 12])
+def test_no_fast_fold_reads_a_table(k):
+    """At every screen of the fast mode (the non-fused class screen at
+    k = 3, the fused one at 8, the pm screen at 12) the finish folds
+    precomputed scores: ``table_folds`` stays 0 while ``native_folds``
+    counts the folds."""
+    with metrics.tracing() as rec:
+        got = api.kmer_low_comp_regions(golden_genome(), k, 100, 20.0,
+                                        thr=0.75, mode="fast", device="cpu")
+    assert len(got.regions) == 3
+    assert rec.counters["spans.extract:native_folds"] > 0
+    assert rec.counters["spans.extract:table_folds"] == 0
 
 
 @pytest.mark.parametrize("total,contigs,seed", [

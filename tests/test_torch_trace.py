@@ -92,6 +92,7 @@ def test_spans_nest_under_their_call():
         assert parent_of[name] == {"finish.weight"}
     stretches = rec.by_name()["finish.assemble"][0]
     assert rec.counters["spans.extract:native_folds"] == stretches \
+        == rec.counters["spans.extract:table_folds"] \
         == rec.by_name()["extract.fold"][0] > 0
     seq_spans = [s for s in sp if s.name == "regions.sequence"]
     assert [(s.call, s.attrs["seq_id"], s.attrs["bases"])
@@ -168,14 +169,15 @@ def test_answers_bit_identical_with_the_recorder_on(case):
 ], ids=["integers", "ties"])
 def test_extract_counters_by_hand(scores, min_width, min_score, want,
                                   counts):
-    names = ("replays", "replay_emits", "native_folds")
+    names = ("replays", "replay_emits", "native_folds", "table_folds")
     before = [getattr(extract, n) for n in names]
     scores = np.array(scores, float)
     got = extract.extract_spans(scores, np.ones(scores.shape[0], bool),
                                 min_width, min_score)
     assert [r[1:] for r in got] == want
+    # precomputed scores: no fold reads a table
     assert tuple(getattr(extract, n) - b
-                 for n, b in zip(names, before)) == counts
+                 for n, b in zip(names, before)) == counts + (0,)
 
 
 def test_pulled_blocks_are_the_missing_candidates():
@@ -209,9 +211,29 @@ def test_pulled_blocks_are_the_missing_candidates():
     assert finish.pulled_blocks - before == sum(map(len, asked)) \
         == rec.counters["spans.finish:pulled_blocks"]
     assert rec.by_name()["finish.pull"][0] == len(asked)
-    # the library folds each candidate stretch once
+    # the library folds each candidate stretch once, from the table
     assert rec.counters["spans.extract:native_folds"] == \
+        rec.counters["spans.extract:table_folds"] == \
         rec.by_name()["finish.assemble"][0] > 0
+
+
+@pytest.mark.parametrize("call", [
+    pytest.param(lambda: _low_comp(_two_sequences()), id="low_comp"),
+    pytest.param(lambda: api.kmer_regions(
+        _two_sequences(), 2, [-0.5, 0.1, -0.3, 0.6] * 4, 40, 5.0,
+        device="cpu").regions, id="kmer_regions_scan_counts"),
+])
+def test_every_exact_fold_reads_the_table(call):
+    """On the exact path every fold reads its scores from the weight
+    table: ``table_folds`` equals ``native_folds`` and the candidate
+    stretches assembled, one ``extract.fold`` each."""
+    with metrics.tracing() as rec:
+        got = call()
+    c = rec.counters
+    assert got.size
+    assert c["spans.extract:table_folds"] == c["spans.extract:native_folds"] \
+        == rec.by_name()["finish.assemble"][0] \
+        == rec.by_name()["extract.fold"][0] > 0
 
 
 def test_an_exception_closes_the_spans_it_left_open():

@@ -266,3 +266,105 @@ def test_neg_inf_weights_reset_the_replay():
     want = find_regions(seq, 0, 40, 20.0, w, 3, 0.0, scan_counts=oracle_sc)
     assert got.regions == want and len(want) >= 2
     assert np.array_equal(sc + out["scan_hist"], oracle_sc)
+
+
+# ------------------------------------------ the fold reads the weights
+
+def _unit_table(rng, k, units=("CG", "AG"), lo=-0.6, hi=0.3):
+    """A 4^k table of decimal weights in [lo, hi], 1.5 at the k-mers of
+    the repeat units and -inf at the all-A k-mer."""
+    from kmer_spans_tpu_torch.encoding import kmer_to_code
+
+    w = np.round(rng.uniform(lo, hi, 1 << (2 * k)), 1)
+    for unit in units:
+        rep = unit * k
+        for off in range(len(unit)):
+            w[kmer_to_code(rep[off:off + k])] = 1.5
+    w[0] = -np.inf
+    return w
+
+
+def test_finish_several_sequences_against_one_k12_table():
+    """Three sequences, one 4^12 weights table handed to every finish as
+    it is, a top C of 2: candidate blocks are pulled, and each sequence's
+    regions equal the oracle's, f64 ==; the table is not written."""
+    from kmer_spans_tpu_torch.spans import finish
+
+    rng = np.random.default_rng(12)
+    w = _unit_table(rng, 12)
+    keep = w.copy()
+    thr = 0.25
+    seqs = [_genome(30 + i, n=n, islands=isl) for i, (n, isl) in enumerate((
+        (30_000, ((3000, "CG", 300), (9000, "AG", 250),
+                  (21000, "CG", 400))),
+        (12_000, ((5000, "AG", 300),)),
+        (26_000, ((1000, "CG", 200), (7000, "A", 40), (7040, "CG", 300),
+                  (15000, "AG", 300), (24000, "CG", 300))),
+    ))]
+    w_q, scale = quantize_weight_table(w, thr, 1024)
+    fn = make_weight_span_pipeline(12, block=1024, cand_blocks=2,
+                                   device="cpu")
+    pulled = finish.pulled_blocks
+    for i, seq in enumerate(seqs):
+        arr = _nbases(seq, 1024)
+        out = {key: v.numpy() for key, v in fn(arr, w_q).items()}
+        got = finish_weight_spans(out, arr.size, w, thr, 40, 20.0, scale,
+                                  block=1024, seq_id=i, pull_fn=fn.pull,
+                                  nbases_dev=torch.from_numpy(arr))
+        want = find_regions(seq, i, 40, 20.0, w, 12, thr)
+        assert not got.fallback and got.regions == want and want
+    assert finish.pulled_blocks > pulled
+    assert np.array_equal(w, keep)
+
+
+@pytest.mark.parametrize("k", [2, 6])
+def test_kmer_regions_scan_counts_equal_native(k):
+    """kmer_regions on the CPU device path over several sequences: the
+    scan counts, rescans of every emission included, and the regions
+    equal the host library's caller (backend="native")."""
+    from kmer_spans_tpu_torch import api
+
+    rng = np.random.default_rng(40 + k)
+    w = _unit_table(rng, k, ("CT", "TCT"), -0.5, 0.2)
+    seqs = [_genome(50 + i, n=n, islands=isl) for i, (n, isl) in enumerate((
+        (20_000, ((2000, "CT", 300), (12000, "TCT", 150))),
+        (9_000, ((4000, "CT", 250),)),
+        (15_000, ((500, "TC", 200), (8000, "CT", 300))),
+    ))]
+    got = api.kmer_regions(seqs, k, w, 40, 10.0, device="cpu")
+    want = api.kmer_regions(seqs, k, w, 40, 10.0, backend="native")
+    assert len(got.regions) >= 3
+    assert np.array_equal(got.regions, want.regions)
+    assert np.array_equal(got.counts, want.counts)
+    # more scans than k-mers: the rescans count again
+    assert got.counts.sum() > api.kmer_counts(seqs, k, device="cpu").n
+
+
+@pytest.mark.parametrize("with_scan_counts", [False, True])
+def test_finish_builds_no_table_sized_array(with_scan_counts):
+    """One sequence's finish with a 4^12 table (134 MB of f64) allocates
+    less than 16 MB beyond its inputs, with or without scan counts: no
+    per-sequence copy of the table and no table-sized histogram."""
+    import tracemalloc
+
+    rng = np.random.default_rng(3)
+    w = _unit_table(rng, 12)
+    seq = _genome(8, n=40_000, islands=((5000, "CG", 300),
+                                        (25000, "AG", 300)))
+    arr = _nbases(seq, 1024)
+    w_q, scale = quantize_weight_table(w, 0.25, 1024)
+    fn = make_weight_span_pipeline(12, block=1024, cand_blocks=4,
+                                   device="cpu")
+    out = {key: v.numpy() for key, v in fn(arr, w_q).items()}
+    sc = np.zeros(w.size, np.int64) if with_scan_counts else None
+    nbases = torch.from_numpy(arr)
+    tracemalloc.start()
+    try:
+        got = finish_weight_spans(out, arr.size, w, 0.25, 40, 20.0, scale,
+                                  block=1024, scan_counts=sc,
+                                  pull_fn=fn.pull, nbases_dev=nbases)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert len(got.regions) == 2
+    assert peak < 16 << 20, peak
